@@ -1,0 +1,33 @@
+"""Inference layer: parameter box, observations, the tempered NLL and the NLL
+landscape. Optimizers, calibration and metrics are not ported yet."""
+
+from ode_uncertainty_tpu_torch.inference.estimate import make_nll_landscape
+from ode_uncertainty_tpu_torch.inference.nll import make_nll
+from ode_uncertainty_tpu_torch.inference.observations import (
+    ObsModel,
+    compact_rows,
+    make_obs_model,
+)
+from ode_uncertainty_tpu_torch.inference.params import ParamSpec, make_param_spec
+from ode_uncertainty_tpu_torch.inference.schedules import (
+    SCHEDULE_REGISTRY,
+    CosineAnnealingSchedule,
+    ExponentialDecaySchedule,
+    LinearDecaySchedule,
+    NoiseSchedule,
+)
+
+__all__ = [
+    "make_nll_landscape",
+    "make_nll",
+    "ObsModel",
+    "compact_rows",
+    "make_obs_model",
+    "ParamSpec",
+    "make_param_spec",
+    "SCHEDULE_REGISTRY",
+    "CosineAnnealingSchedule",
+    "ExponentialDecaySchedule",
+    "LinearDecaySchedule",
+    "NoiseSchedule",
+]

@@ -1,0 +1,494 @@
+"""Forward NLL of the square-root EKF on a uniform grid: the CUDA kernel and
+its plain PyTorch version.
+
+Port of the forward half of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The
+TPU kernel ``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` (one thread per lane,
+built by ``utils/cuda_build.py``); the tile math it runs (``_build_chain_math``
+and ``make_nll_tiles``) becomes :class:`ChainMath` and :func:`nll_plain`,
+which evaluate the same arithmetic on lists of ``[B]`` tensors. The tests
+hold the plain version against the JAX package, and ``chip_smoke.py`` holds
+the kernel against the plain version on the card.
+
+:func:`make_nll_cuda` returns the wrapper ``nll_b(p_norm_b [B, P_opt],
+gamma_sqrt) -> [B]``: for CUDA tensors it launches the kernel (or raises),
+for CPU tensors it runs the plain version. Each launch adds one to
+``launches["nll_fwd"]``.
+
+Scope (:func:`supports`): an RKF45 solver, the exact ``SqrtEKF`` type with
+``disable_cov_update=True``, a uniform observation grid read in row order,
+and a model and (state, observation) size the kernel is instantiated for:
+Lotka-Volterra with n = 2 and L = 1 or 2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from ode_uncertainty_tpu_torch.filters.sqrt_ekf import SqrtEKF
+from ode_uncertainty_tpu_torch.solvers.erk import ERK
+from ode_uncertainty_tpu_torch.solvers.tableaus import ButcherTableau
+from ode_uncertainty_tpu_torch.utils.cuda_build import load_library
+
+# Launches of each CUDA kernel in this process (compare runs by resetting).
+launches: Dict[str, int] = {"nll_fwd": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Per-model right-hand sides on lists of [B] tensors and their JVPs, written
+# in the evaluation order of the JAX tile RHS (pallas_ekf.py:71-76) and of
+# the `LotkaVolterra` functor in csrc/nll_fwd.cu. Autonomous: no time input.
+# --------------------------------------------------------------------------
+
+def _rhs_lotka_volterra(y, p):
+    prey, pred = y
+    return [
+        p["alpha"] * prey - p["beta"] * prey * pred,
+        p["delta"] * prey * pred - p["gamma"] * pred,
+    ]
+
+
+def _rhs_jvp_lotka_volterra(y, dy, p):
+    prey, pred = y
+    dprey, dpred = dy
+    return [
+        p["alpha"] * dprey - (p["beta"] * dprey * pred + p["beta"] * prey * dpred),
+        (p["delta"] * dprey * pred + p["delta"] * prey * dpred) - p["gamma"] * dpred,
+    ]
+
+
+TILE_RHS = {"lotka_volterra": (_rhs_lotka_volterra, _rhs_jvp_lotka_volterra)}
+
+# Ids of the instantiations in csrc/nll_fwd.cu.
+_MODEL_IDS = {"lotka_volterra": 0}
+_MODEL_PARAMS = {"lotka_volterra": ("alpha", "beta", "gamma", "delta")}
+_TABLEAU_IDS = {"rkf45": 0}
+_SIZES = {(2, 1), (2, 2)}  # (state size n, observation size L)
+_DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
+
+
+def detect_uniform(obs):
+    """(first, d, n_obs) for uniformly spaced observations read in row
+    order, else None (the rule of ``pallas_ekf.py:401-412``)."""
+    flags_np = np.asarray(obs.flags.cpu())
+    obs_steps = np.nonzero(flags_np)[0]
+    if len(obs_steps) < 2:
+        return None
+    diffs = np.diff(obs_steps)
+    rows = np.asarray(obs.index_map.cpu())[obs_steps]
+    if np.all(diffs == diffs[0]) and np.array_equal(rows, np.arange(len(obs_steps))):
+        return (int(obs_steps[0]), int(diffs[0]), len(obs_steps))
+    return None
+
+
+def supports(model, solver, ekf, obs) -> bool:
+    """Whether the CUDA kernel covers this configuration."""
+    return (
+        isinstance(solver, ERK)
+        and solver.tableau.name in _TABLEAU_IDS
+        and model.name in TILE_RHS
+        # exact type: a subclass may compute a different likelihood
+        and type(ekf) is SqrtEKF
+        and getattr(ekf, "disable_cov_update", False)
+        and (model.state_size, obs.obs_dim) in _SIZES
+        and detect_uniform(obs) is not None
+    )
+
+
+# --------------------------------------------------------------------------
+# Small-matrix algebra on lists of tensors (pallas_ekf.py:195-263, 367-376)
+# --------------------------------------------------------------------------
+
+def _qr_r_lists(a_rows, eps: float):
+    """R factor of a thin QR for an [m][n] list-of-tensors matrix: the
+    Householder sweep of ops/small_qr.py with max-abs scaling and the
+    zero-column guard."""
+    m, n = len(a_rows), len(a_rows[0])
+    scale = torch.abs(a_rows[0][0])
+    for i in range(m):
+        for j in range(n):
+            if i or j:
+                scale = torch.maximum(scale, torch.abs(a_rows[i][j]))
+    scale = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    r = [[a_rows[i][j] / scale for j in range(n)] for i in range(m)]
+
+    for j in range(n):
+        col = [r[i][j] for i in range(j, m)]
+        sigma_sq = col[0] * col[0]
+        for c in col[1:]:
+            sigma_sq = sigma_sq + c * c
+        sigma = torch.sqrt(sigma_sq)
+        sign = torch.where(col[0] >= 0, 1.0, -1.0).to(col[0].dtype)
+        alpha = -sign * sigma
+        v = [col[0] + sigma * sign] + col[1:]
+        vnorm_sq = v[0] * v[0]
+        for c in v[1:]:
+            vnorm_sq = vnorm_sq + c * c
+        live = vnorm_sq > eps
+        inv = torch.where(live, 2.0 / torch.clamp(vnorm_sq, min=eps), torch.zeros_like(vnorm_sq))
+
+        for k in range(j + 1, n):
+            coeff = v[0] * r[j][k]
+            for i in range(j + 1, m):
+                coeff = coeff + v[i - j] * r[i][k]
+            coeff = coeff * inv
+            for i in range(j, m):
+                r[i][k] = r[i][k] - v[i - j] * coeff
+        r[j][j] = torch.where(live, alpha, col[0])
+        for i in range(j + 1, m):
+            r[i][j] = torch.zeros_like(r[i][j])
+
+    return [[r[i][j] * scale for j in range(n)] for i in range(n)]
+
+
+def _sqrt_sum_lists(eps: float, *factors):
+    """Lower L (as [n][n] lists) with L L^T = sum F F^T; each factor is
+    [n][k] (columns may differ): QR of the stacked transposes."""
+    n = len(factors[0])
+    rows = []
+    for f in factors:
+        for c in range(len(f[0])):
+            rows.append([f[i][c] for i in range(n)])  # row c of F^T
+    r = _qr_r_lists(rows, eps)
+    return [[r[j][i] for j in range(n)] for i in range(n)]
+
+
+def _fwd_sub(lmat, b):
+    """z with L z = b (L lower)."""
+    z = []
+    for i in range(len(b)):
+        acc = b[i]
+        for j in range(i):
+            acc = acc - lmat[i][j] * z[j]
+        z.append(acc / lmat[i][i])
+    return z
+
+
+def _bwd_sub(lmat, b):
+    """z with L^T z = b (L lower)."""
+    n = len(b)
+    z = [None] * n
+    for i in reversed(range(n)):
+        acc = b[i]
+        for j in range(i + 1, n):
+            acc = acc - lmat[j][i] * z[j]
+        z[i] = acc / lmat[i][i]
+    return z
+
+
+# --------------------------------------------------------------------------
+# Per-chain math
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChainMath:
+    """Constants and per-lane math of one experiment: what the kernel bakes
+    into its by-value struct, and the interval body its plain version runs.
+    Matrices are nested lists of Python floats."""
+
+    model_name: str
+    rhs: Callable
+    rhs_jvp: Callable
+    tableau: ButcherTableau
+    h: float
+    t0: float
+    first: int
+    d: int
+    n_obs: int
+    n: int
+    L: int
+    dtype: torch.dtype
+    x0: List[float]
+    p0: List[List[float]]
+    H: List[List[float]]
+    R: List[List[float]]
+    Q: List[List[float]]
+    offsets: Dict[str, int]  # parameter name -> row of the [K, B] matrix
+    k_params: int
+
+    @property
+    def eps(self) -> float:
+        return (4.0 * torch.finfo(self.dtype).eps) ** 2
+
+    @property
+    def nll_const(self) -> float:
+        return 0.5 * self.L * float(np.log(2.0 * np.pi))
+
+    def _live_stages(self) -> List[bool]:
+        """Stages whose slope reaches the propagated solution."""
+        tab = self.tableau
+        s_count = tab.num_stages
+        live = [False] * s_count
+        for s in reversed(range(s_count)):
+            live[s] = tab.b_sol[s] != 0.0 or any(
+                live[u] and tab.a[u][s] != 0.0 for u in range(s + 1, s_count)
+            )
+        return live
+
+    def predict(self, x, p_mat, params, qg):
+        """One EKF predict: the RK step with the columns of P carried as
+        tangents through every stage, then P <- sqrt_sum(J P, gamma^1/2 Q)
+        (pallas_ekf.py:480-498)."""
+        n, tab, h = self.n, self.tableau, self.h
+        cols = [[p_mat[i][c] for i in range(n)] for c in range(n)]
+        ks, dks = [], []
+        for s, live in enumerate(self._live_stages()):
+            if not live:
+                ks.append(None)
+                dks.append(None)
+                continue
+            yi, dyi = list(x), [list(col) for col in cols]
+            for j in range(s):
+                a = tab.a[s][j]
+                if a == 0.0:
+                    continue
+                ha = h * a
+                yi = [yi[k] + ha * ks[j][k] for k in range(n)]
+                dyi = [[dyi[c][k] + ha * dks[j][c][k] for k in range(n)] for c in range(n)]
+            ks.append(self.rhs(yi, params))
+            dks.append([self.rhs_jvp(yi, dyi[c], params) for c in range(n)])
+        x_next, p_cols = list(x), [list(col) for col in cols]
+        for s, b in enumerate(tab.b_sol):
+            if b == 0.0:
+                continue
+            hb = h * b
+            x_next = [x_next[k] + hb * ks[s][k] for k in range(n)]
+            p_cols = [[p_cols[c][k] + hb * dks[s][c][k] for k in range(n)] for c in range(n)]
+        p_pred = [[p_cols[j][i] for j in range(n)] for i in range(n)]
+        return x_next, _sqrt_sum_lists(self.eps, p_pred, qg)
+
+    def correct(self, x, p_mat, y_vals, r_const):
+        """Joseph-form sqrt correct and innovation NLL (pallas_ekf.py:500-579)."""
+        n, L, H, R = self.n, self.L, self.H, self.R
+        y_hat = []
+        for l in range(L):
+            acc = None
+            for k in range(n):
+                if H[l][k] == 0.0:
+                    continue
+                term = H[l][k] * x[k]
+                acc = term if acc is None else acc + term
+            y_hat.append(acc if acc is not None else torch.zeros_like(x[0]))
+        hp = [
+            [sum(H[l][k] * p_mat[k][c] for k in range(n) if H[l][k] != 0.0) for c in range(n)]
+            for l in range(L)
+        ]
+        s_sqrt = _sqrt_sum_lists(self.eps, hp, r_const)
+
+        # K = (S^-T S^-1 H P P^T)^T : two substitutions and small products
+        z_rows = [_bwd_sub(s_sqrt, _fwd_sub(s_sqrt, [H[l][k] for l in range(L)])) for k in range(n)]
+        w = [[sum(z_rows[k][l] * p_mat[k][c] for k in range(n)) for c in range(n)] for l in range(L)]
+        k_gain = [[sum(w[l][c] * p_mat[i][c] for c in range(n)) for l in range(L)] for i in range(n)]
+
+        innov = [y_vals[l] - y_hat[l] for l in range(L)]
+        x_new = [x[i] + sum(k_gain[i][l] * innov[l] for l in range(L)) for i in range(n)]
+
+        # A = I - K H;  P_new = sqrt_sum(A P, K R)
+        a_mat = [
+            [
+                (1.0 if i == j else 0.0)
+                - sum(k_gain[i][l] * H[l][j] for l in range(L) if H[l][j] != 0.0)
+                for j in range(n)
+            ]
+            for i in range(n)
+        ]
+        ap = [[sum(a_mat[i][k] * p_mat[k][c] for k in range(n)) for c in range(n)] for i in range(n)]
+        kr = []
+        for i in range(n):
+            row = []
+            for c in range(L):
+                acc = torch.zeros_like(x[0])
+                for l in range(L):
+                    if R[l][c] != 0.0:
+                        acc = acc + k_gain[i][l] * R[l][c]
+                row.append(acc)
+            kr.append(row)
+        p_new = _sqrt_sum_lists(self.eps, ap, kr)
+
+        z = _fwd_sub(s_sqrt, innov)
+        half_maha = 0.5 * sum(zi * zi for zi in z)
+        log_det = sum(torch.log(torch.abs(s_sqrt[l][l])) for l in range(L))
+        return x_new, p_new, half_maha + self.nll_const + log_det
+
+    def interval(self, x, p_mat, params, qg, r_const, y_vals, count):
+        """``count`` predicts followed by one correct."""
+        for _ in range(count):
+            x, p_mat = self.predict(x, p_mat, params, qg)
+        return self.correct(x, p_mat, y_vals, r_const)
+
+    def rig_doubles(self) -> List[float]:
+        """The constants in the layout of ``unpack_rig`` in csrc/nll_fwd.cu."""
+        flat = lambda m: [v for row in m for v in row]
+        vals = [self.t0, self.h, self.first, self.d, self.n_obs, self.nll_const]
+        vals += list(self.x0) + flat(self.p0) + flat(self.H) + flat(self.R) + flat(self.Q)
+        vals += [self.offsets[k] for k in _MODEL_PARAMS[self.model_name]]
+        return [float(v) for v in vals]
+
+
+def build_chain_math(model, solver, spec, obs, state0, q_sqrt) -> ChainMath:
+    uniform = detect_uniform(obs)
+    if uniform is None:
+        raise ValueError("the NLL kernel needs a uniform observation grid read in row order")
+    if model.name not in TILE_RHS:
+        raise ValueError(f"no tile RHS for model {model.name!r}")
+    if not isinstance(solver, ERK):
+        raise TypeError(f"unsupported solver for the NLL kernel: {solver!r}")
+    first, d, n_obs = uniform
+    rhs, rhs_jvp = TILE_RHS[model.name]
+
+    to_list = lambda a: np.asarray(torch.as_tensor(a).cpu(), np.float64).tolist()
+    offsets = {}
+    off = 0
+    for key, shape in zip(spec.keys, spec.shapes):
+        size = int(np.prod(shape)) if shape else 1
+        if size != 1:
+            raise ValueError(f"vector parameter {key!r} is not supported by the NLL kernel")
+        offsets[key] = off
+        off += size
+
+    n = int(state0.x.numel())
+    return ChainMath(
+        model_name=model.name,
+        rhs=rhs,
+        rhs_jvp=rhs_jvp,
+        tableau=solver.tableau,
+        h=float(solver.h),
+        t0=float(state0.t),
+        first=first,
+        d=d,
+        n_obs=n_obs,
+        n=n,
+        L=int(obs.obs_dim),
+        dtype=state0.x.dtype,
+        x0=to_list(state0.x.reshape(n)),
+        p0=to_list(state0.P_sqrt),
+        H=to_list(obs.H),
+        R=to_list(obs.R_sqrt),
+        Q=to_list(q_sqrt),
+        offsets=offsets,
+        k_params=off,
+    )
+
+
+def nll_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: phys_t [K, B], ys [n_obs, L]
+    -> NLL [B], on whatever device the tensors are on. ``gamma_sqrt`` is a
+    scalar or a [B] tensor."""
+    like = phys_t[0]
+    gamma_sqrt = torch.as_tensor(gamma_sqrt, dtype=phys_t.dtype, device=phys_t.device)
+    params = {key: phys_t[row] for key, row in cm.offsets.items()}
+    qg = [[gamma_sqrt * cm.Q[i][j] for j in range(cm.n)] for i in range(cm.n)]
+    r_const = [[torch.full_like(like, cm.R[i][j]) for j in range(cm.L)] for i in range(cm.L)]
+    x = [torch.full_like(like, v) for v in cm.x0]
+    p_mat = [[torch.full_like(like, v) for v in row] for row in cm.p0]
+
+    def y(j):
+        return [ys[j, l] for l in range(cm.L)]
+
+    x, p_mat, nll = cm.interval(x, p_mat, params, qg, r_const, y(0), cm.first + 1)
+    for j in range(1, cm.n_obs):
+        x, p_mat, nlg = cm.interval(x, p_mat, params, qg, r_const, y(j), cm.d)
+        nll = nll + nlg
+    return nll
+
+
+def physical_rows(spec, dtype: torch.dtype, p_norm_b: torch.Tensor) -> torch.Tensor:
+    """Normalized [B, P_opt] -> physical parameter rows [K, B] in ``dtype``."""
+    phys = spec.flatten(spec.to_params(p_norm_b.to(dtype))).to(dtype)
+    return phys.T.contiguous()
+
+
+class NllFwd:
+    """``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]`` through the forward
+    NLL kernel: launched on CUDA tensors, its plain version on CPU tensors."""
+
+    name = "nll_fwd"
+
+    def __init__(self, cm: ChainMath, spec, ys: torch.Tensor):
+        self.cm = cm
+        self.spec = spec
+        self.ys = ys[: cm.n_obs].to(cm.dtype).contiguous()
+        self._rig = (ctypes.c_double * len(cm.rig_doubles()))(*cm.rig_doubles())
+
+    def physical(self, p_norm_b: torch.Tensor) -> torch.Tensor:
+        """Normalized [B, P_opt] -> physical parameter rows [K, B]."""
+        return physical_rows(self.spec, self.cm.dtype, p_norm_b)
+
+    def __call__(self, p_norm_b: torch.Tensor, gamma_sqrt) -> torch.Tensor:
+        phys_t = self.physical(p_norm_b)
+        if phys_t.is_cuda:
+            return self.launch(phys_t, gamma_sqrt)
+        if phys_t.device.type != "cpu":
+            raise ValueError(f"no NLL kernel for device {phys_t.device}")
+        return nll_plain(self.cm, phys_t, self.ys, gamma_sqrt)
+
+    def launch(self, phys_t: torch.Tensor, gamma_sqrt) -> torch.Tensor:
+        """One kernel launch on the current stream: phys_t [K, B] -> [B]."""
+        cm = self.cm
+        if not phys_t.is_cuda or phys_t.dtype not in _DTYPE_IDS:
+            raise ValueError(f"the kernel takes float32/float64 CUDA tensors, got {phys_t.dtype} on {phys_t.device}")
+        if phys_t.dim() != 2 or phys_t.shape[0] != cm.k_params or not phys_t.is_contiguous():
+            raise ValueError(f"phys_t must be a contiguous [{cm.k_params}, B] tensor, got {tuple(phys_t.shape)}")
+        batch = phys_t.shape[1]
+        if not 0 < batch < 2**31:
+            raise ValueError(f"batch size {batch} out of range")
+        ys = self.ys
+        if ys.device != phys_t.device or ys.dtype != phys_t.dtype:
+            raise ValueError(f"observations on {ys.device}/{ys.dtype}, parameters on {phys_t.device}/{phys_t.dtype}")
+        lib = load_library()
+        out = torch.empty(batch, dtype=phys_t.dtype, device=phys_t.device)
+        with torch.cuda.device(phys_t.device):
+            stream = torch.cuda.current_stream(phys_t.device).cuda_stream
+            err = lib.odeuq_nll_fwd(
+                _DTYPE_IDS[phys_t.dtype],
+                cm.n,
+                cm.L,
+                _MODEL_IDS[cm.model_name],
+                _TABLEAU_IDS[cm.tableau.name],
+                phys_t.data_ptr(),
+                cm.k_params,
+                batch,
+                ys.data_ptr(),
+                self._rig,
+                float(gamma_sqrt),
+                out.data_ptr(),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"nll_fwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
+        launches[self.name] += 1
+        return out
+
+
+def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt) -> NllFwd:
+    """Builds the kernel wrapper for a configuration :func:`supports` covers.
+    ``q_sqrt`` [n, n] is a constant of the experiment; the tempering scale
+    ``gamma_sqrt`` is a call argument."""
+    del num_steps  # the uniform grid fixes the horizon that matters
+    if not supports(model, solver, ekf, obs):
+        raise ValueError("configuration not covered by the NLL kernel (see supports())")
+    return NllFwd(build_chain_math(model, solver, spec, obs, state0, q_sqrt), spec, obs.ys)
+
+
+def make_nll_tiles(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt) -> Callable:
+    """The plain version alone, on any device and for any ERK tableau and
+    size: ``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]``."""
+    del num_steps
+    if not getattr(ekf, "disable_cov_update", False):
+        raise ValueError("the tile NLL covers disable_cov_update=True only")
+    cm = build_chain_math(model, solver, spec, obs, state0, q_sqrt)
+    ys = obs.ys[: cm.n_obs].to(cm.dtype)
+
+    def nll_b(p_norm_b: torch.Tensor, gamma_sqrt) -> torch.Tensor:
+        return nll_plain(cm, physical_rows(spec, cm.dtype, p_norm_b), ys, gamma_sqrt)
+
+    return nll_b

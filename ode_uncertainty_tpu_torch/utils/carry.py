@@ -1,0 +1,99 @@
+"""Carrying an experiment across from the JAX package.
+
+The counterpart of carrying weights across: :func:`rig_from_numpy` takes the
+values of a JAX estimation rig as numpy arrays (model parameters, the
+parameter box, the initial state, the noise and observation arrays) and
+builds the port's :class:`Rig` from them, so that both packages evaluate the
+same NLL. :class:`Rig` is also what the port's entry point builds from a
+config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ode_uncertainty_tpu_torch.filters.sqrt_ekf import EKFState, SqrtEKF
+from ode_uncertainty_tpu_torch.inference.observations import ObsModel, compact_rows
+from ode_uncertainty_tpu_torch.inference.params import ParamSpec
+from ode_uncertainty_tpu_torch.models import MODEL_REGISTRY, ODEModel
+from ode_uncertainty_tpu_torch.solvers import TABLEAUS, ERK
+
+
+@dataclasses.dataclass(frozen=True)
+class Rig:
+    """Everything the tempered NLL of one experiment is built from."""
+
+    model: ODEModel
+    solver: ERK
+    ekf: SqrtEKF
+    spec: ParamSpec
+    obs: ObsModel
+    state0: EKFState
+    q_sqrt: torch.Tensor
+    num_steps: int
+    x0_raw: torch.Tensor
+
+
+def rig_from_numpy(d: Dict, device="cuda", dtype=torch.float32) -> Rig:
+    """Builds the port's rig from a JAX rig's values.
+
+    Keys of ``d``:
+      * ``model``: the model's name (``ODEModel.name``), ``params``: {name: value};
+      * ``tableau`` (e.g. ``"rkf45"``), ``h``, ``num_steps``, ``t0``;
+      * ``disable_cov_update``;
+      * ParamSpec: ``spec_keys``, ``spec_shapes``, ``defaults``, ``mins``,
+        ``maxs``, ``opt_mask`` (bool over the flat vector);
+      * ``x0`` [N, D], ``P0_sqrt``, ``H``, ``R_sqrt``, ``q_sqrt``, ``ys``,
+        ``flags``, ``index_map``.
+
+    Observation rows are compacted as the port's ``make_obs_model`` does (the
+    rows no step reads are dropped), which leaves every step's value as is.
+    """
+    t = lambda a, dt=dtype: torch.as_tensor(np.array(a), dtype=dt, device=device)
+    factories = {f().name: f for f in MODEL_REGISTRY.values()}
+    model = factories[d["model"]]()
+    model = dataclasses.replace(
+        model, params={k: torch.as_tensor(np.asarray(v, np.float64)) for k, v in d["params"].items()}
+    )
+    solver = ERK(TABLEAUS[d["tableau"]], float(d["h"]))
+    ekf = SqrtEKF(disable_cov_update=bool(d["disable_cov_update"]))
+
+    mask = np.asarray(d["opt_mask"], bool)
+    keys = tuple(d["spec_keys"])
+    shapes = tuple(tuple(s) for s in d["spec_shapes"])
+    owners = [k for k, s in zip(keys, shapes) for _ in range(int(np.prod(s)) if s else 1)]
+    spec = ParamSpec(
+        keys=keys,
+        shapes=shapes,
+        defaults_flat=t(d["defaults"]),
+        mins_flat=t(d["mins"]),
+        maxs_flat=t(d["maxs"]),
+        opt_indices=torch.as_tensor(np.nonzero(mask)[0], dtype=torch.int64, device=device),
+        opt_keys=tuple(k for k, m in zip(owners, mask) if m),
+    )
+
+    ys, index_map = compact_rows(d["ys"], d["flags"], d["index_map"])
+    obs = ObsModel(
+        H=t(d["H"]),
+        R_sqrt=t(d["R_sqrt"]),
+        ys=t(ys),
+        flags=torch.as_tensor(np.asarray(d["flags"], bool), device=device),
+        index_map=torch.as_tensor(index_map, device=device),
+    )
+    x0 = t(d["x0"])
+    state0 = ekf.init_state(float(d["t0"]), x0, t(d["P0_sqrt"]), obs.obs_dim)
+    return Rig(
+        model=model,
+        solver=solver,
+        ekf=ekf,
+        spec=spec,
+        obs=obs,
+        state0=state0,
+        q_sqrt=t(d["q_sqrt"]),
+        num_steps=int(d["num_steps"]),
+        x0_raw=x0,
+    )
