@@ -1,7 +1,13 @@
-"""Inference layer: parameter box, observations, the tempered NLL and the NLL
-landscape. Optimizers, calibration and metrics are not ported yet."""
+"""Inference layer: parameter box, observations, the tempered NLL, the NLL
+landscape and the host L-BFGS. The on-device optimizer, calibration and
+metrics are not ported yet."""
 
-from ode_uncertainty_tpu_torch.inference.estimate import make_nll_landscape
+from ode_uncertainty_tpu_torch.inference.estimate import EstimationResult, make_nll_landscape
+from ode_uncertainty_tpu_torch.inference.lbfgs_host import (
+    HostLBFGSResult,
+    lbfgs_box_host,
+    make_stage_optimizer_host,
+)
 from ode_uncertainty_tpu_torch.inference.nll import make_nll
 from ode_uncertainty_tpu_torch.inference.observations import (
     ObsModel,
@@ -18,6 +24,10 @@ from ode_uncertainty_tpu_torch.inference.schedules import (
 )
 
 __all__ = [
+    "EstimationResult",
+    "HostLBFGSResult",
+    "lbfgs_box_host",
+    "make_stage_optimizer_host",
     "make_nll_landscape",
     "make_nll",
     "ObsModel",

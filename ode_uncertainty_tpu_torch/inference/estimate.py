@@ -1,13 +1,28 @@
-"""NLL landscape evaluation (port of ``make_nll_landscape`` in
+"""NLL landscape evaluation and the estimation result (port of
+``make_nll_landscape`` and ``EstimationResult`` in
 ``ode_uncertainty_tpu/inference/estimate.py``). The tempered estimator and
-the stage optimizers are not ported yet."""
+its stage optimizer run on the host L-BFGS (``inference/lbfgs_host.py``);
+the on-device ``make_stage_optimizer`` and ``make_tempered_estimator`` wait
+for the on-device L-BFGS (``inference/lbfgs.py``), which is not ported yet."""
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
+
+
+class EstimationResult(NamedTuple):
+    """Result arrays (the H5 schema of the reference)."""
+
+    params_inits: np.ndarray  # [R, P_opt] physical initial params
+    params_optims: np.ndarray  # [R, S, P_opt] physical optima per stage
+    nll_optims: np.ndarray  # [R, S]
+    num_lbfgs_iters: np.ndarray  # [R, S]
+    num_nll_evals: np.ndarray  # [R, S]
+    gammas: np.ndarray  # [S]
 
 
 def make_nll_landscape(

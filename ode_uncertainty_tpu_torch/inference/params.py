@@ -79,6 +79,20 @@ class ParamSpec:
         hi = self.maxs_flat[self.opt_indices]
         return p_norm_opt * (hi - lo) + lo
 
+    def physical_to_opt(self, p_phys: torch.Tensor) -> torch.Tensor:
+        lo = self.mins_flat[self.opt_indices]
+        hi = self.maxs_flat[self.opt_indices]
+        return (p_phys - lo) / (hi - lo)
+
+    def defaults_norm_opt(self) -> torch.Tensor:
+        """Default values of the optimized subset, normalized."""
+        return self.physical_to_opt(self.defaults_flat[self.opt_indices])
+
+    def opt_mask_full(self) -> torch.Tensor:
+        mask = torch.zeros(self.num_full, dtype=torch.bool, device=self.defaults_flat.device)
+        mask[self.opt_indices] = True
+        return mask
+
     def sample_norm(self, generator: torch.Generator, num: int) -> torch.Tensor:
         """Uniform restarts in the normalized box: [num, P_opt], drawn on the
         generator's device."""

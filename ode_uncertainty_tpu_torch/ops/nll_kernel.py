@@ -1,18 +1,25 @@
-"""Forward NLL of the square-root EKF on a uniform grid: the CUDA kernel and
-its plain PyTorch version.
+"""NLL of the square-root EKF on a uniform grid and its gradient: the CUDA
+kernels and their plain PyTorch versions.
 
-Port of the forward half of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The
-TPU kernel ``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` (one thread per lane,
-built by ``utils/cuda_build.py``); the tile math it runs (``_build_chain_math``
-and ``make_nll_tiles``) becomes :class:`ChainMath` and :func:`nll_plain`,
-which evaluate the same arithmetic on lists of ``[B]`` tensors. The tests
-hold the plain version against the JAX package, and ``chip_smoke.py`` holds
-the kernel against the plain version on the card.
+Port of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The TPU kernel
+``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` and ``bwd_kernel`` becomes
+``csrc/nll_bwd.cu`` (one thread per lane, or per lane and parameter
+direction; built by ``utils/cuda_build.py``). The tile math they run
+(``_build_chain_math`` and ``make_nll_tiles``) becomes :class:`ChainMath` and
+:func:`nll_plain`, which evaluate the same arithmetic on lists of ``[B]``
+tensors; :func:`nll_grad_plain` differentiates it with autograd. The tests
+hold the plain versions against the JAX package, and ``chip_smoke.py`` holds
+the kernels against the plain versions on the card.
 
 :func:`make_nll_cuda` returns the wrapper ``nll_b(p_norm_b [B, P_opt],
-gamma_sqrt) -> [B]``: for CUDA tensors it launches the kernel (or raises),
-for CPU tensors it runs the plain version. Each launch adds one to
-``launches["nll_fwd"]``.
+gamma_sqrt) -> [B]``, differentiable through :class:`NllKernelFunction` (the
+counterpart of ``_nll_phys``'s ``custom_vjp``, pallas_ekf.py:944-966): its
+forward launches ``nll_fwd`` and its backward launches ``nll_bwd`` with the
+incoming cotangent. For CUDA tensors each launches its kernel (or raises);
+for CPU tensors each runs its plain version. Each launch adds one to
+``launches[name]``. No padding is needed (the JAX wrapper pads the batch to
+whole (8, 128) tiles, pallas_ekf.py:968-979): the kernels mask the ragged
+last block.
 
 Scope (:func:`supports`): an RKF45 solver, the exact ``SqrtEKF`` type with
 ``disable_cov_update=True``, a uniform observation grid read in row order,
@@ -24,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +42,7 @@ from ode_uncertainty_tpu_torch.solvers.tableaus import ButcherTableau
 from ode_uncertainty_tpu_torch.utils.cuda_build import load_library
 
 # Launches of each CUDA kernel in this process (compare runs by resetting).
-launches: Dict[str, int] = {"nll_fwd": 0}
+launches: Dict[str, int] = {"nll_fwd": 0, "nll_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -401,15 +408,51 @@ def nll_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt)
     return nll
 
 
+def nll_grad_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt,
+                   g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the gradient kernel: reverse-mode autograd through
+    :func:`nll_plain`. Returns ``(dphys [K, B], dgamma)``, the cotangent ``g``
+    [B] pulled back to the parameter rows and to ``gamma_sqrt``; ``dgamma``
+    has the shape of ``gamma_sqrt`` (a scalar sums over lanes, a [B] tensor
+    gives each lane's share)."""
+    with torch.enable_grad():
+        phys = phys_t.detach().requires_grad_(True)
+        gs = torch.as_tensor(gamma_sqrt, dtype=phys_t.dtype, device=phys_t.device)
+        gs = gs.detach().clone().requires_grad_(True)
+        nll = nll_plain(cm, phys, ys, gs)
+        dphys, dgamma = torch.autograd.grad(nll, (phys, gs), grad_outputs=g.to(nll.dtype))
+    return dphys, dgamma
+
+
 def physical_rows(spec, dtype: torch.dtype, p_norm_b: torch.Tensor) -> torch.Tensor:
     """Normalized [B, P_opt] -> physical parameter rows [K, B] in ``dtype``."""
     phys = spec.flatten(spec.to_params(p_norm_b.to(dtype))).to(dtype)
     return phys.T.contiguous()
 
 
+def _check_rows(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor) -> int:
+    """Validates the [K, B] parameter rows a kernel takes; returns B."""
+    if not phys_t.is_cuda or phys_t.dtype not in _DTYPE_IDS:
+        raise ValueError(f"the kernel takes float32/float64 CUDA tensors, got {phys_t.dtype} on {phys_t.device}")
+    if phys_t.dim() != 2 or phys_t.shape[0] != cm.k_params or not phys_t.is_contiguous():
+        raise ValueError(f"phys_t must be a contiguous [{cm.k_params}, B] tensor, got {tuple(phys_t.shape)}")
+    batch = phys_t.shape[1]
+    if not 0 < batch < 2**31:
+        raise ValueError(f"batch size {batch} out of range")
+    if ys.device != phys_t.device or ys.dtype != phys_t.dtype:
+        raise ValueError(f"observations on {ys.device}/{ys.dtype}, parameters on {phys_t.device}/{phys_t.dtype}")
+    return batch
+
+
+def _check_device(t: torch.Tensor) -> None:
+    if t.device.type != "cpu":
+        raise ValueError(f"no NLL kernel for device {t.device}")
+
+
 class NllFwd:
     """``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]`` through the forward
-    NLL kernel: launched on CUDA tensors, its plain version on CPU tensors."""
+    NLL kernel, differentiable through the gradient kernel (:attr:`grad`):
+    launched on CUDA tensors, the plain versions on CPU tensors."""
 
     name = "nll_fwd"
 
@@ -418,32 +461,27 @@ class NllFwd:
         self.spec = spec
         self.ys = ys[: cm.n_obs].to(cm.dtype).contiguous()
         self._rig = (ctypes.c_double * len(cm.rig_doubles()))(*cm.rig_doubles())
+        self.grad = NllGrad(self)
 
     def physical(self, p_norm_b: torch.Tensor) -> torch.Tensor:
         """Normalized [B, P_opt] -> physical parameter rows [K, B]."""
         return physical_rows(self.spec, self.cm.dtype, p_norm_b)
 
     def __call__(self, p_norm_b: torch.Tensor, gamma_sqrt) -> torch.Tensor:
-        phys_t = self.physical(p_norm_b)
+        gs = torch.as_tensor(gamma_sqrt, dtype=self.cm.dtype)
+        return NllKernelFunction.apply(self.physical(p_norm_b), gs, self)
+
+    def forward(self, phys_t: torch.Tensor, gamma_sqrt) -> torch.Tensor:
+        """NLL [B] of the rows phys_t [K, B]: the kernel or its plain version."""
         if phys_t.is_cuda:
             return self.launch(phys_t, gamma_sqrt)
-        if phys_t.device.type != "cpu":
-            raise ValueError(f"no NLL kernel for device {phys_t.device}")
+        _check_device(phys_t)
         return nll_plain(self.cm, phys_t, self.ys, gamma_sqrt)
 
     def launch(self, phys_t: torch.Tensor, gamma_sqrt) -> torch.Tensor:
         """One kernel launch on the current stream: phys_t [K, B] -> [B]."""
         cm = self.cm
-        if not phys_t.is_cuda or phys_t.dtype not in _DTYPE_IDS:
-            raise ValueError(f"the kernel takes float32/float64 CUDA tensors, got {phys_t.dtype} on {phys_t.device}")
-        if phys_t.dim() != 2 or phys_t.shape[0] != cm.k_params or not phys_t.is_contiguous():
-            raise ValueError(f"phys_t must be a contiguous [{cm.k_params}, B] tensor, got {tuple(phys_t.shape)}")
-        batch = phys_t.shape[1]
-        if not 0 < batch < 2**31:
-            raise ValueError(f"batch size {batch} out of range")
-        ys = self.ys
-        if ys.device != phys_t.device or ys.dtype != phys_t.dtype:
-            raise ValueError(f"observations on {ys.device}/{ys.dtype}, parameters on {phys_t.device}/{phys_t.dtype}")
+        batch = _check_rows(cm, phys_t, self.ys)
         lib = load_library()
         out = torch.empty(batch, dtype=phys_t.dtype, device=phys_t.device)
         with torch.cuda.device(phys_t.device):
@@ -457,7 +495,7 @@ class NllFwd:
                 phys_t.data_ptr(),
                 cm.k_params,
                 batch,
-                ys.data_ptr(),
+                self.ys.data_ptr(),
                 self._rig,
                 float(gamma_sqrt),
                 out.data_ptr(),
@@ -467,6 +505,85 @@ class NllFwd:
             raise RuntimeError(f"nll_fwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
         launches[self.name] += 1
         return out
+
+
+class NllGrad:
+    """``(dphys [K, B], dgamma)`` for the cotangent ``g`` [B] of the NLL of the
+    rows phys_t [K, B], through the gradient kernel on CUDA tensors and
+    :func:`nll_grad_plain` on CPU tensors. ``dgamma`` is a scalar, or None
+    when ``with_dgamma`` is false (the kernel then skips that direction)."""
+
+    name = "nll_bwd"
+
+    def __init__(self, fwd: NllFwd):
+        self.cm = fwd.cm
+        self.ys = fwd.ys
+        self._rig = fwd._rig
+
+    def __call__(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor,
+                 with_dgamma: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if phys_t.is_cuda:
+            dphys, dgamma = self.launch(phys_t, gamma_sqrt, g, with_dgamma)
+            return dphys, (dgamma.sum() if with_dgamma else None)
+        _check_device(phys_t)
+        dphys, dgamma = nll_grad_plain(self.cm, phys_t, self.ys, gamma_sqrt, g)
+        return dphys, (dgamma if with_dgamma else None)
+
+    def launch(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor,
+               with_dgamma: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One kernel launch on the current stream: ``(dphys [K, B], each
+        lane's share of dgamma [B] or None)``."""
+        cm = self.cm
+        batch = _check_rows(cm, phys_t, self.ys)
+        g = g.to(phys_t.dtype).contiguous()
+        if g.shape != (batch,) or g.device != phys_t.device:
+            raise ValueError(f"g must be a [{batch}] tensor on {phys_t.device}, got {tuple(g.shape)} on {g.device}")
+        lib = load_library()
+        dphys = torch.empty_like(phys_t)
+        dgamma = torch.empty(batch, dtype=phys_t.dtype, device=phys_t.device) if with_dgamma else None
+        with torch.cuda.device(phys_t.device):
+            stream = torch.cuda.current_stream(phys_t.device).cuda_stream
+            err = lib.odeuq_nll_bwd(
+                _DTYPE_IDS[phys_t.dtype],
+                cm.n,
+                cm.L,
+                _MODEL_IDS[cm.model_name],
+                _TABLEAU_IDS[cm.tableau.name],
+                phys_t.data_ptr(),
+                cm.k_params,
+                batch,
+                self.ys.data_ptr(),
+                self._rig,
+                float(gamma_sqrt),
+                g.data_ptr(),
+                dphys.data_ptr(),
+                None if dgamma is None else dgamma.data_ptr(),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"nll_bwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
+        launches[self.name] += 1
+        return dphys, dgamma
+
+
+class NllKernelFunction(torch.autograd.Function):
+    """NLL [B] of the rows phys_t [K, B] at the scalar ``gamma_sqrt``: the
+    forward runs ``fwd`` (:class:`NllFwd`), the backward runs ``fwd.grad``
+    (:class:`NllGrad`) with the incoming cotangent."""
+
+    @staticmethod
+    def forward(ctx, phys_t, gamma_sqrt, fwd):
+        ctx.save_for_backward(phys_t, gamma_sqrt)
+        ctx.fwd = fwd
+        return fwd.forward(phys_t.contiguous(), gamma_sqrt)
+
+    @staticmethod
+    def backward(ctx, g):
+        phys_t, gamma_sqrt = ctx.saved_tensors
+        dphys, dgamma = ctx.fwd.grad(phys_t.contiguous(), gamma_sqrt, g, ctx.needs_input_grad[1])
+        if dgamma is not None:
+            dgamma = dgamma.to(gamma_sqrt.device)
+        return dphys, dgamma, None
 
 
 def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt) -> NllFwd:

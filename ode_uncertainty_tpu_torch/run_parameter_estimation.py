@@ -1,14 +1,24 @@
 """Tempered ODE parameter estimation entry point of the port (counterpart of
-``scripts/run_parameter_estimation.py``). Subcommand:
+``scripts/run_parameter_estimation.py``). Subcommands:
 
+  optimize — tempered maximum likelihood from restarts with the host L-BFGS;
+             writes the reference's keys (``params_inits``, ``params_optims``,
+             ``nll_optims``, the iteration and evaluation counters, ``gammas``,
+             ``wall_clock_s``, ...).
   evaluate — NLL landscape over a parameter grid per tempering stage; writes
              ``param_evals``, ``nll_evals``, ``gammas`` and ``timings``.
 
-The batched NLL goes through the CUDA kernel of ``ops/nll_kernel.py`` when
-``supports()`` holds (its plain version on CPU tensors), else through the
-port's ``make_nll``. ``optimize`` is not ported yet.
+When ``supports()`` holds, the NLL goes through the CUDA kernels of
+``ops/nll_kernel.py`` (``nll_fwd``, and for ``optimize``'s gradient
+``nll_bwd``), or their plain versions on CPU tensors; else through the port's
+``make_nll`` (with autograd for the gradient), which on the CPU runs about
+ten times slower than the plain versions (its linearization goes through
+``torch.func.jvp``). Results go to the ``output`` path: H5, or ``.npz`` for a
+path with that suffix.
 
 Usage:
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/lotkavolterra2 [--set device=cpu] [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
 """
@@ -21,10 +31,18 @@ import time
 import numpy as np
 import torch
 
-from ode_uncertainty_tpu_torch.inference import make_nll, make_nll_landscape, make_obs_model, make_param_spec
+from ode_uncertainty_tpu_torch.inference import (
+    EstimationResult,
+    make_nll,
+    make_nll_landscape,
+    make_obs_model,
+    make_param_spec,
+    make_stage_optimizer_host,
+)
 from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops.nll_kernel import make_nll_cuda, supports
 from ode_uncertainty_tpu_torch.utils.carry import Rig
+from ode_uncertainty_tpu_torch.utils.checkpoint import run_stage_grid
 from ode_uncertainty_tpu_torch.utils.config import apply_runtime_config, config_cli, parse_literal
 from ode_uncertainty_tpu_torch.utils.io import load_data, store_data
 
@@ -74,14 +92,18 @@ def build_rig(cfg, dtype, device) -> Rig:
     return Rig(model, solver, ekf, spec, obs, state0, torch.diag(w), num_steps, x0_raw)
 
 
+# Restart batches beyond this are optimized in sequential chunks.
+RESTART_CHUNK = 512
+
+
 def batched_nll(rig: Rig, cfg):
-    """``(nll(p [B, P_opt], q_sqrt, gamma_sqrt) -> [B], route)``: the NLL kernel
-    when it covers the configuration, else the port's make_nll."""
+    """``(nll_b(p [B, P_opt], gamma_sqrt) -> [B], on_kernels)``: the NLL
+    kernels' wrapper (differentiable through nll_bwd) when they cover the
+    configuration, else the port's make_nll at the rig's q_sqrt."""
     if supports(rig.model, rig.solver, rig.ekf, rig.obs):
-        kernel = make_nll_cuda(
+        return make_nll_cuda(
             rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt
-        )
-        return (lambda p, q_sqrt, gamma_sqrt: kernel(p, gamma_sqrt)), "nll_fwd kernel"
+        ), True
     nll = make_nll(
         rig.model,
         rig.solver,
@@ -94,7 +116,7 @@ def batched_nll(rig: Rig, cfg):
         initial_state_parametrized=cfg.get("initial_state_parametrized", False),
         parameter_sensitivity=cfg.get("parameter_sensitivity", False),
     )
-    return nll, "make_nll"
+    return (lambda p, gamma_sqrt: nll(p, rig.q_sqrt, gamma_sqrt)), False
 
 
 def gammas_of(cfg, dtype) -> torch.Tensor:
@@ -102,12 +124,110 @@ def gammas_of(cfg, dtype) -> torch.Tensor:
     return sched.gammas(cfg.get("num_tempering_stages", 10), cfg.get("final_gamma_zero", True)).to(dtype)
 
 
+def initial_restarts(cfg, spec, dtype) -> torch.Tensor:
+    """[R, P_opt] normalized restarts: ``num_random_runs`` uniform draws from a
+    ``torch.Generator`` seeded with ``seed``, or, for 0 runs, the defaults."""
+    runs = cfg.get("num_random_runs", 0)
+    if runs > 0:
+        gen = torch.Generator(device=spec.defaults_flat.device).manual_seed(cfg.get("seed", 7))
+        return spec.sample_norm(gen, runs).to(dtype)
+    return spec.defaults_norm_opt().to(dtype)[None, :]
+
+
+def optimize(cfg) -> dict:
+    """Tempered estimation of ``cfg``; stores and returns the results, plus
+    the route and a record of each (restart chunk x stage) unit."""
+    rt = apply_runtime_config(cfg)
+    dtype, device = rt["dtype"], rt["device"]
+    if cfg.get("optimizer_mode", "host") == "device":
+        raise NotImplementedError(
+            "optimizer_mode=device (the on-device L-BFGS, inference/lbfgs.py) is not ported yet; "
+            "use optimizer_mode=host"
+        )
+    rig = build_rig(cfg, dtype, device)
+    spec = rig.spec
+    gammas = gammas_of(cfg, dtype)
+    p0 = initial_restarts(cfg, spec, dtype)
+
+    nll_b, on_kernels = batched_nll(rig, cfg)
+    route = "nll_fwd + nll_bwd kernels" if on_kernels else "make_nll + autograd"
+
+    # per-unit record: wall seconds, value-and-gradient dispatches and the
+    # widest, lanes that reached the iteration limit
+    max_iter = cfg.get("lbfgs_maxiter", 200)
+    widths: list = []
+    units: list = []
+
+    def counted(p, gamma_sqrt):
+        widths.append(p.shape[0])
+        return nll_b(p, gamma_sqrt)
+
+    stage_opt = make_stage_optimizer_host(
+        None,
+        rig.q_sqrt,
+        nll_batched=counted,
+        max_iter=max_iter,
+        tol=cfg.get("lbfgs_tol", 1e-4),
+        state_prefix=str(cfg["output"]),
+        progress_every=int(cfg.get("lbfgs_progress_every", 1)),
+    )
+
+    def stage(p_norm, gamma, unit_key=None):
+        n0, t0 = len(widths), time.perf_counter()
+        res = stage_opt(p_norm, gamma, unit_key=unit_key)
+        units.append({"unit": unit_key, "gamma": float(gamma), "seconds": time.perf_counter() - t0,
+                      "dispatches": len(widths) - n0, "widest": max(widths[n0:], default=0), "lanes": len(res.iters),
+                      "lanes_at_max_iter": int((res.iters >= max_iter).sum())})
+        return res
+
+    t_start = time.perf_counter()
+    merged = run_stage_grid(
+        cfg["output"],
+        p0,
+        gammas,
+        stage,
+        spec.opt_to_physical,
+        chunk=int(cfg.get("restart_chunk", RESTART_CHUNK)),
+        resume=cfg.get("resume", True),
+        tag=str(cfg.get("tag", cfg["output"])),
+    )
+    wall = time.perf_counter() - t_start
+    fields = ("params_inits", "params_optims", "nll_optims", "num_lbfgs_iters", "num_nll_evals")
+    res = EstimationResult(*[merged[f] for f in fields], gammas=gammas.cpu().numpy())
+
+    results = {
+        "params_inits": res.params_inits,
+        "params_optims": res.params_optims,
+        "params_default": spec.defaults_flat[spec.opt_indices].cpu().numpy(),
+        "params_name": np.asarray(spec.opt_keys, dtype="S"),
+        "nll_optims": res.nll_optims,
+        "num_lbfgs_iters": res.num_lbfgs_iters,
+        "num_nll_evals": res.num_nll_evals,
+        # each dispatch evaluates value and gradient together; counters coincide
+        "num_nll_jac_evals": res.num_nll_evals,
+        "gammas": res.gammas,
+        "wall_clock_s": np.asarray(wall),
+    }
+    store_data(results, cfg["output"], mode="a")
+    final_nll = np.asarray(results["nll_optims"][:, -1], np.float64)
+    # diverged restarts leave NaN rows; pick the best finite one
+    best = int(np.nanargmin(np.where(np.isfinite(final_nll), final_nll, np.inf)))
+    print(
+        f"optimize: {p0.shape[0]} restarts x {len(gammas)} stages in {wall:.1f}s ({route}, {device}); "
+        f"best NLL {results['nll_optims'][best, -1]:.3f} at "
+        f"{results['params_optims'][best, -1]} -> {cfg['output']}",
+        flush=True,
+    )
+    return {**results, "route": route, "units": units}
+
+
 def evaluate(cfg) -> dict:
     """NLL landscape of ``cfg``; stores and returns the results."""
     rt = apply_runtime_config(cfg)
     dtype, device = rt["dtype"], rt["device"]
     rig = build_rig(cfg, dtype, device)
-    nll, route = batched_nll(rig, cfg)
+    nll_b, on_kernels = batched_nll(rig, cfg)
+    route = "nll_fwd kernel" if on_kernels else "make_nll"
     gammas = gammas_of(cfg, dtype)
     spec = rig.spec
 
@@ -120,7 +240,10 @@ def evaluate(cfg) -> dict:
 
     batch_times: list = []
     landscape = make_nll_landscape(
-        nll, rig.q_sqrt, batch_size=cfg.get("eval_batch", 256), timings_out=batch_times
+        lambda p, q_sqrt, gamma_sqrt: nll_b(p, gamma_sqrt),
+        rig.q_sqrt,
+        batch_size=cfg.get("eval_batch", 256),
+        timings_out=batch_times,
     )
     t0 = time.perf_counter()
     vals = landscape(grid_t, gammas).cpu().numpy()
@@ -152,10 +275,10 @@ def evaluate(cfg) -> dict:
 def main(argv=None) -> None:
     cfg = config_cli(
         "Tempered ODE parameter estimation (PyTorch/CUDA port)",
-        positional=[("command", {"choices": ["evaluate"]})],
+        positional=[("command", {"choices": ["optimize", "evaluate"]})],
         argv=argv,
     )
-    evaluate(cfg)
+    (optimize if cfg["command"] == "optimize" else evaluate)(cfg)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""Builds the package's CUDA sources (``csrc/*.cu``) with one ``nvcc`` call into
-a shared library with a plain C interface, and loads it with ``ctypes``.
+"""Builds the package's CUDA sources (``csrc/*.cu``, which include
+``csrc/*.cuh``) into one shared library with a plain C interface, and loads
+it with ``ctypes``.
 
-The library goes to ``build/`` at the repository root, named by a hash of the
-sources and the flags, so a second run loads it without rebuilding. Nothing
+Each source is compiled to an object by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects. The library goes to
+``build/`` at the repository root, named by a hash of the sources, the
+headers and the flags, so a second run loads it without rebuilding. Nothing
 here runs on import: the first kernel launch (or :func:`build_library`)
 builds. A failed build raises with nvcc's output.
 """
@@ -26,7 +29,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas=-v",
@@ -36,7 +38,7 @@ NVCC_FLAGS = (
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
     path: Path
-    seconds: float  # nvcc wall time; 0 when the cached library was reused
+    seconds: float  # nvcc wall time (compiles and link); 0 when the cached library was reused
     built: bool
     log: str  # nvcc's output (ptxas register and spill report)
 
@@ -61,28 +63,42 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SOURCES_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libodeuq_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> str:
+    """Runs the commands side by side; returns their output or raises with
+    that of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def build_library() -> BuildResult:
-    """Compiles every ``csrc/*.cu`` into one shared library unless the hashed
-    library already exists."""
+    """Compiles every ``csrc/*.cu`` (one nvcc each, in parallel) and links
+    them into one shared library, unless the hashed library already exists."""
     out = library_path()
     if out.exists():
         return BuildResult(out, 0.0, False, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources()]]
+    stem = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objs)])
+    tmp = out.with_name(f"{stem}.tmp.so")
+    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
-    return BuildResult(out, seconds, True, proc.stdout + proc.stderr)
+    for o in objs:
+        o.unlink()
+    return BuildResult(out, seconds, True, log)
 
 
 @functools.cache
@@ -106,6 +122,24 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.odeuq_nll_fwd.restype = ctypes.c_int
+    lib.odeuq_nll_bwd.argtypes = [
+        ctypes.c_int,  # dtype
+        ctypes.c_int,  # n
+        ctypes.c_int,  # obs_dim
+        ctypes.c_int,  # model
+        ctypes.c_int,  # tableau
+        ctypes.c_void_p,  # phys
+        ctypes.c_int,  # k_params
+        ctypes.c_int,  # batch
+        ctypes.c_void_p,  # ys
+        ctypes.POINTER(ctypes.c_double),  # rig constants (host)
+        ctypes.c_double,  # gamma_sqrt
+        ctypes.c_void_p,  # g
+        ctypes.c_void_p,  # dphys
+        ctypes.c_void_p,  # dgamma per lane, or NULL
+        ctypes.c_void_p,  # stream
+    ]
+    lib.odeuq_nll_bwd.restype = ctypes.c_int
     lib.odeuq_error_string.argtypes = [ctypes.c_int]
     lib.odeuq_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,10 +1,14 @@
-"""The nll_fwd CUDA kernel against its plain PyTorch version, on the card.
+"""The nll_fwd and nll_bwd CUDA kernels against their plain PyTorch
+versions, on the card.
 
 Imports only torch, numpy and the port, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py``.
-Without a card it skips (the kernel has no CPU mode; ``chip_smoke.py`` runs
-it at full size). Tolerance: float64 rtol 1e-9; float32 rtol 2e-4 / atol
-1e-4 against the float32 plain version.
+Without a card it skips (the kernels have no CPU mode; ``chip_smoke.py`` runs
+them at full size). Tolerances: values, float64 rtol 1e-9 and float32 rtol
+2e-4 / atol 1e-4 against the float32 plain version; gradients, float64 rtol
+1e-9 (elements where the plain gradient is 0 relative to its largest
+magnitude) and float32 |k - p| / (|p| + 1) <= 5e-3 against the float64 plain
+version (the gradient rtol of tests/test_pallas_ekf.py).
 """
 
 import numpy as np
@@ -51,3 +55,59 @@ def test_kernel_matches_plain_version_on_the_card(dtype, obs_rows):
         assert nll_kernel.launches["nll_fwd"] == before + 1
         want = nll_kernel.nll_plain(fn.cm, fn.physical(p), fn.ys, gamma_sqrt)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
+def _grad_err(kernel_vals, plain_vals):
+    k = np.asarray(kernel_vals, np.float64)
+    p = np.asarray(plain_vals, np.float64)
+    rel = np.abs(k - p) / np.where(p != 0, np.abs(p), np.abs(p).max())
+    return float(rel.max()), float((np.abs(k - p) / (np.abs(p) + 1.0)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("obs_rows", [[[1.0, 0.0]], [[1.0, 0.0], [0.0, 1.0]]])
+def test_grad_kernel_matches_plain_version_on_the_card(dtype, obs_rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the nll_bwd kernel has no CPU mode (chip_smoke.py runs it)")
+    fn = _kernel(getattr(torch, dtype), obs_rows, num_steps=60)
+    fn64 = _kernel(torch.float64, obs_rows, num_steps=60)
+    rng = np.random.default_rng(2)
+    p = torch.as_tensor(rng.uniform(size=(40, 2)), device="cuda")
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=40), device="cuda")
+    for gamma_sqrt in (0.1, 0.0):
+        before = nll_kernel.launches["nll_bwd"]
+        dphys, dgam = fn.grad.launch(fn.physical(p), gamma_sqrt, g)
+        torch.cuda.synchronize()
+        assert nll_kernel.launches["nll_bwd"] == before + 1
+        want_dphys, want_dgam = nll_kernel.nll_grad_plain(
+            fn64.cm, fn64.physical(p), fn64.ys, torch.full((40,), gamma_sqrt, device="cuda", dtype=torch.float64),
+            g.double())
+        got = torch.cat([dphys, dgam[None]]).cpu().numpy()
+        want = torch.cat([want_dphys, want_dgam[None]]).cpu().numpy()
+        assert np.isfinite(got).all()
+        rel, lane = _grad_err(got, want)
+        if dtype == "float64":
+            assert rel <= 1e-9, rel
+        else:
+            assert lane <= 5e-3, lane
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_both_kernels_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NLL kernels have no CPU mode (chip_smoke.py runs them)")
+    fn = _kernel(torch.float64, [[1.0, 0.0]], num_steps=60)
+    p = torch.as_tensor(np.random.default_rng(3).uniform(size=(16, 2)), device="cuda").requires_grad_(True)
+    gs = torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    before = dict(nll_kernel.launches)
+    fn(p, gs).sum().backward()
+    torch.cuda.synchronize()
+    assert nll_kernel.launches["nll_fwd"] == before["nll_fwd"] + 1
+    assert nll_kernel.launches["nll_bwd"] == before["nll_bwd"] + 1
+    q = p.detach().clone().requires_grad_(True)
+    gq = gs.detach().clone().requires_grad_(True)
+    nll_kernel.nll_plain(fn.cm, fn.physical(q), fn.ys, gq).sum().backward()
+    np.testing.assert_allclose(p.grad.cpu().numpy(), q.grad.cpu().numpy(), rtol=1e-9)
+    assert gs.grad.device.type == "cpu"
+    np.testing.assert_allclose(float(gs.grad), float(gq.grad), rtol=1e-9)
