@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel `fwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (:722-742, launched by `_fwd_call` :866-890) for an explicit Runge-Kutta
-// step (`_erk_step_tiles` :171). Its plain PyTorch version, which the tests
+// step (`_erk_step_tiles` :171; Lotka-Volterra) and for the Kvaerno3 step
+// (`_make_sdirk_step_tiles` :291-364; the single-compartment Hodgkin-Huxley
+// variants). Its plain PyTorch version, which the tests
 // and the on-card comparison hold this kernel against, is `nll_plain` in
 // ode_uncertainty_tpu_torch/ops/nll_kernel.py. The per-lane math lives in
 // ekf_chain.cuh, which the gradient kernel (nll_bwd.cu) shares.
@@ -40,57 +42,68 @@
 // (700 W, float32, chip_smoke.py): ~1.4 us a predict and ~1.1 us a
 // correct, where the operations of one step of 256 lanes would take
 // ~2.4 ns at the peak rate.
+//
+// The Kvaerno3 step (Hodgkin-Huxley, n = 4, 7, 8, L = 1, 10^4 steps). Per
+// step: the Jacobian at the base point by one evaluation of the RHS on an
+// n-tangent jet, a Gauss-Jordan inverse of I - h g J, then three implicit
+// stages of `newton_iters` (6) simplified-Newton iterations, each stage
+// ending with the Jacobian and the inverse at its solution and the tangents
+// of P's columns through the implicit-function rule (ekf_chain.cuh,
+// `kvaerno3_stages`). The same one-thread-per-lane layout: every matrix of
+// the step is in registers (spilling to local memory at n = 8, where a
+// thread holds ~700 values), the Newton loop is not unrolled. The
+// evaluate batch is 100 lanes (4 warps), so the time is again one lane's
+// dependent chain: ~4 Jacobians, 4 inverses and 18 RHS evaluations a step,
+// with exp/expm1 in every rate law; chip_smoke.py reports the operations the
+// plain version counts and the bound they give.
 
-#include "ekf_chain.cuh"
+#include "nll_fwd.cuh"
 
-namespace {
+// One unit each (nll_fwd_hh*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4 (4),
+// reduced-1 (7), full (8), in float and double.
+#define ODEUQ_DECLARE(NAME)                                                                 \
+  extern "C" int NAME(const void* phys, int batch, const void* ys, const double* rig, \
+                      double gamma_sqrt, void* out, void* stream);
+ODEUQ_DECLARE(odeuq_nll_fwd_hh4_f32)
+ODEUQ_DECLARE(odeuq_nll_fwd_hh4_f64)
+ODEUQ_DECLARE(odeuq_nll_fwd_hh7_f32)
+ODEUQ_DECLARE(odeuq_nll_fwd_hh7_f64)
+ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f32)
+ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f64)
+#undef ODEUQ_DECLARE
 
-constexpr int kThreads = 32;
-
-template <typename T, int N, int L, class Model, class Tab>
-__global__ void __launch_bounds__(kThreads)
-    nll_fwd_kernel(const T* __restrict__ phys, int batch, const T* __restrict__ ys,
-                   const Rig<T, N, L> rig, const T gamma_sqrt, T* __restrict__ out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  const typename Model::template Params<T> p = Model::template load<T>(phys, batch, lane, rig.poff);
-  out[lane] = chain_nll<T, N, L, Model, Tab>(rig, p, gamma_sqrt, ys);
-}
-
-template <typename T, int L, class Model, class Tab>
-int launch(const void* phys, int batch, const void* ys, const double* rig_host, double gamma_sqrt,
-           void* out, cudaStream_t stream) {
-  constexpr int N = Model::N;
-  const Rig<T, N, L> rig = unpack_rig<T, N, L, Model>(rig_host);
-  if (rig.n_obs < 1 || rig.d < 1 || rig.first < 0) return -3;
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  nll_fwd_kernel<T, N, L, Model, Tab><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(phys), batch, static_cast<const T*>(ys), rig, T(gamma_sqrt),
-      static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra. tableau: 0 RKF45.
+// dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
+// reduced-4, 2 reduced-1, 3 full. tableau: 0 RKF45, 1 Kvaerno3. Instantiated:
+// Lotka-Volterra x RKF45 (n = 2, L = 1 or 2) and each Hodgkin-Huxley variant
+// x Kvaerno3 (L = 1).
 // phys: [k_params, batch] physical parameters; ys: [n_obs, obs_dim]; out: [batch].
 // Returns 0, a cudaError_t code (> 0), or a negative code for a configuration
 // no instantiation covers.
 extern "C" int odeuq_nll_fwd(int dtype, int n, int obs_dim, int model, int tableau,
                              const void* phys, int k_params, int batch, const void* ys,
                              const double* rig, double gamma_sqrt, void* out, void* stream) {
-  if (model != 0 || tableau != 0 || n != LotkaVolterra::N || k_params < LotkaVolterra::K)
-    return -1;
   if (batch <= 0) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && obs_dim == 1)
-    return launch<float, 1, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
-  if (dtype == 0 && obs_dim == 2)
-    return launch<float, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
-  if (dtype == 1 && obs_dim == 1)
-    return launch<double, 1, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
-  if (dtype == 1 && obs_dim == 2)
-    return launch<double, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
+  if (model == 0 && tableau == 0 && n == LotkaVolterra::N && k_params >= LotkaVolterra::K) {
+    if (dtype == 0 && obs_dim == 1)
+      return launch<float, 1, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
+    if (dtype == 0 && obs_dim == 2)
+      return launch<float, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
+    if (dtype == 1 && obs_dim == 1)
+      return launch<double, 1, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
+    if (dtype == 1 && obs_dim == 2)
+      return launch<double, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
+    return -1;
+  }
+  if (tableau != 1 || obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1))
+    return -1;
+  const bool f32 = dtype == 0;
+  if (model == 1 && n == 4)
+    return (f32 ? odeuq_nll_fwd_hh4_f32 : odeuq_nll_fwd_hh4_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
+  if (model == 2 && n == 7)
+    return (f32 ? odeuq_nll_fwd_hh7_f32 : odeuq_nll_fwd_hh7_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
+  if (model == 3 && n == 8)
+    return (f32 ? odeuq_nll_fwd_hh8_f32 : odeuq_nll_fwd_hh8_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
   return -1;
 }
 

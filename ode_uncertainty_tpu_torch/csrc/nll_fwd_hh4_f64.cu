@@ -1,0 +1,6 @@
+// nll_fwd for Hodgkin-Huxley reduced-4 with the Kvaerno3 step, in double
+// (one instantiation a unit, so that nvcc builds them in parallel).
+
+#include "nll_fwd.cuh"
+
+ODEUQ_NLL_FWD_KVAERNO3(odeuq_nll_fwd_hh4_f64, double, 4)

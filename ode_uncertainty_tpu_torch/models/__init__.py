@@ -1,4 +1,4 @@
-"""ODE model zoo (classic systems; the Hodgkin-Huxley family is not ported yet)."""
+"""ODE model zoo: the classic systems and the Hodgkin-Huxley family."""
 
 from ode_uncertainty_tpu_torch.models.base import ODEFn, ODEModel, Params, as_params, batch_param
 from ode_uncertainty_tpu_torch.models.classic import (
@@ -11,6 +11,10 @@ from ode_uncertainty_tpu_torch.models.classic import (
     rlc_circuit,
     van_der_pol,
 )
+from ode_uncertainty_tpu_torch.models.hodgkin_huxley import (
+    hodgkin_huxley,
+    multi_compartment_hodgkin_huxley,
+)
 
 # Registry for config-driven instantiation (utils.config resolves these names).
 MODEL_REGISTRY = {
@@ -22,6 +26,8 @@ MODEL_REGISTRY = {
     "VanDerPol": van_der_pol,
     "LCAO": lcao,
     "RLCCircuit": rlc_circuit,
+    "HodgkinHuxley": hodgkin_huxley,
+    "MultiCompartmentHodgkinHuxley": multi_compartment_hodgkin_huxley,
 }
 
 __all__ = [
@@ -38,5 +44,7 @@ __all__ = [
     "van_der_pol",
     "lcao",
     "rlc_circuit",
+    "hodgkin_huxley",
+    "multi_compartment_hodgkin_huxley",
     "MODEL_REGISTRY",
 ]

@@ -21,25 +21,42 @@ for CPU tensors each runs its plain version. Each launch adds one to
 whole (8, 128) tiles, pallas_ekf.py:968-979): the kernels mask the ragged
 last block.
 
-Scope (:func:`supports`): an RKF45 solver, the exact ``SqrtEKF`` type with
+Scope (:func:`supports`): the exact ``SqrtEKF`` type with
 ``disable_cov_update=True``, a uniform observation grid read in row order,
-and a model and (state, observation) size the kernel is instantiated for:
-Lotka-Volterra with n = 2 and L = 1 or 2.
+and a (model, solver) pair and (state, observation) size the kernels are
+instantiated for: Lotka-Volterra with RKF45, n = 2 and L = 1 or 2 (both
+kernels); the three single-compartment Hodgkin-Huxley variants with
+Kvaerno3, n = 4, 7 or 8 and L = 1 (``nll_fwd`` only: the gradient of the
+implicit step is not ported yet, and :class:`NllGrad` and
+:func:`nll_grad_plain` raise for it).
+
+Time: step i of observation interval j starts at ``t_start(j) + i h``,
+``t_start`` computed from the step index in double precision and rounded
+to the working type once (the rule of ``make_nll_tiles``). The port's
+``make_nll`` accumulates ``t += h`` in the working type instead, as the JAX
+package's XLA path does; at the stimulus edges of Hodgkin-Huxley the two
+rules can take different sides of ``t >= 10``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import importlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ode_uncertainty_tpu_torch.filters.sqrt_ekf import SqrtEKF
+from ode_uncertainty_tpu_torch.ops.small_inv import inv_small
+from ode_uncertainty_tpu_torch.solvers import sdirk
 from ode_uncertainty_tpu_torch.solvers.erk import ERK
-from ode_uncertainty_tpu_torch.solvers.tableaus import ButcherTableau
+from ode_uncertainty_tpu_torch.solvers.sdirk import Kvaerno3
 from ode_uncertainty_tpu_torch.utils.cuda_build import load_library
+
+# the models package re-exports a factory of the same name as the module
+hh = importlib.import_module("ode_uncertainty_tpu_torch.models.hodgkin_huxley")
 
 # Launches of each CUDA kernel in this process (compare runs by resetting).
 launches: Dict[str, int] = {"nll_fwd": 0, "nll_bwd": 0}
@@ -51,12 +68,13 @@ def reset_launches() -> None:
 
 
 # --------------------------------------------------------------------------
-# Per-model right-hand sides on lists of [B] tensors and their JVPs, written
-# in the evaluation order of the JAX tile RHS (pallas_ekf.py:71-76) and of
-# the `LotkaVolterra` functor in csrc/nll_fwd.cu. Autonomous: no time input.
+# Per-model right-hand sides ``rhs(t, y, p)`` on lists of [B] tensors, with
+# their JVPs ``rhs_jvp(t, y, dy, p)`` and Jacobians, written in the
+# evaluation order of the JAX tile RHS (pallas_ekf.py:71-151) and of the
+# model functors in csrc/ekf_chain.cuh. ``t`` is a zero-dim tensor.
 # --------------------------------------------------------------------------
 
-def _rhs_lotka_volterra(y, p):
+def _rhs_lotka_volterra(t, y, p):
     prey, pred = y
     return [
         p["alpha"] * prey - p["beta"] * prey * pred,
@@ -64,7 +82,7 @@ def _rhs_lotka_volterra(y, p):
     ]
 
 
-def _rhs_jvp_lotka_volterra(y, dy, p):
+def _rhs_jvp_lotka_volterra(t, y, dy, p):
     prey, pred = y
     dprey, dpred = dy
     return [
@@ -73,14 +91,63 @@ def _rhs_jvp_lotka_volterra(y, dy, p):
     ]
 
 
-TILE_RHS = {"lotka_volterra": (_rhs_lotka_volterra, _rhs_jvp_lotka_volterra)}
+def _make_rhs_hodgkin_huxley(variant: str):
+    """Single-compartment HH on lists of tiles: the model module's channel
+    derivatives on the stacked state (the JAX tiles reuse its rate laws
+    the same way, pallas_ekf.py:108-151)."""
 
-# Ids of the instantiations in csrc/nll_fwd.cu.
-_MODEL_IDS = {"lotka_volterra": 0}
-_MODEL_PARAMS = {"lotka_volterra": ("alpha", "beta", "gamma", "delta")}
-_TABLEAU_IDS = {"rkf45": 0}
-_SIZES = {(2, 1), (2, 2)}  # (state size n, observation size L)
+    def rhs(t, y, p):
+        return list(hh._channel_derivs(t, torch.stack(y, -1), p, variant).unbind(-1))
+
+    return rhs
+
+
+def _generic_jvp(rhs):
+    """``rhs_jvp`` by forward-mode autodiff of ``rhs``."""
+
+    def rhs_jvp(t, y, dy, p):
+        return list(torch.func.jvp(lambda *yy: tuple(rhs(t, list(yy), p)), tuple(y), tuple(dy))[1])
+
+    return rhs_jvp
+
+
+TILE_RHS = {"lotka_volterra": (_rhs_lotka_volterra, _rhs_jvp_lotka_volterra)}
+for _variant in ("full", "reduced-1", "reduced-4"):
+    _rhs = _make_rhs_hodgkin_huxley(_variant)
+    TILE_RHS[f"hodgkin_huxley_{_variant}"] = (_rhs, _generic_jvp(_rhs))
+
+# Ids of the instantiations in csrc/nll_fwd.cu and csrc/nll_bwd.cu, and the
+# order in which a model functor reads its parameter rows.
+_HH_PARAMS = tuple(hh._SINGLE_DEFAULTS)
+_MODEL_IDS = {
+    "lotka_volterra": 0,
+    "hodgkin_huxley_reduced-4": 1,
+    "hodgkin_huxley_reduced-1": 2,
+    "hodgkin_huxley_full": 3,
+}
+_MODEL_PARAMS = {
+    "lotka_volterra": ("alpha", "beta", "gamma", "delta"),
+    "hodgkin_huxley_reduced-4": _HH_PARAMS,
+    "hodgkin_huxley_reduced-1": _HH_PARAMS,
+    "hodgkin_huxley_full": _HH_PARAMS,
+}
+_SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1}
+# (model, solver) -> the kernels instantiated for it: "fwd" (nll_fwd) and
+# "bwd" (nll_bwd, the gradient)
+_KERNELS = {
+    ("lotka_volterra", "rkf45"): ("fwd", "bwd"),
+    ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd",),
+    ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd",),
+    ("hodgkin_huxley_full", "kvaerno3"): ("fwd",),
+}
+_SIZES = {(2, 1), (2, 2), (4, 1), (7, 1), (8, 1)}  # (state size n, observation size L)
 _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
+
+_NO_IMPLICIT_GRAD = (
+    "the NLL gradient of a Kvaerno3 (implicit) step is not ported yet: it needs the Kvaerno3 "
+    "counterpart of bwd_kernel (the next slice of the port); differentiating the plain version "
+    "or make_nll would differentiate the Newton loop instead of the stage-solve rule"
+)
 
 
 def detect_uniform(obs):
@@ -97,12 +164,12 @@ def detect_uniform(obs):
     return None
 
 
-def supports(model, solver, ekf, obs) -> bool:
-    """Whether the CUDA kernel covers this configuration."""
+def supports(model, solver, ekf, obs, grad: bool = False) -> bool:
+    """Whether the CUDA kernels cover this configuration: the forward NLL
+    (``nll_fwd``), and with ``grad`` its gradient (``nll_bwd``) as well."""
     return (
-        isinstance(solver, ERK)
-        and solver.tableau.name in _TABLEAU_IDS
-        and model.name in TILE_RHS
+        isinstance(solver, (ERK, Kvaerno3))
+        and ("bwd" if grad else "fwd") in _KERNELS.get((model.name, solver.name), ())
         # exact type: a subclass may compute a different likelihood
         and type(ekf) is SqrtEKF
         and getattr(ekf, "disable_cov_update", False)
@@ -205,7 +272,7 @@ class ChainMath:
     model_name: str
     rhs: Callable
     rhs_jvp: Callable
-    tableau: ButcherTableau
+    solver: object  # ERK or Kvaerno3
     h: float
     t0: float
     first: int
@@ -221,6 +288,13 @@ class ChainMath:
     Q: List[List[float]]
     offsets: Dict[str, int]  # parameter name -> row of the [K, B] matrix
     k_params: int
+    # False: step times from the step index (the tiles' rule); True: t += h
+    # in the working type from t0 (the XLA path's rule, filters/sqrt_ekf.py:123)
+    accumulate_time: bool = False
+
+    @property
+    def implicit(self) -> bool:
+        return isinstance(self.solver, Kvaerno3)
 
     @property
     def eps(self) -> float:
@@ -230,9 +304,16 @@ class ChainMath:
     def nll_const(self) -> float:
         return 0.5 * self.L * float(np.log(2.0 * np.pi))
 
+    def t_start(self, j: int) -> float:
+        """Time at the start of observation interval j, from the step index
+        in double precision (make_nll_tiles, pallas_ekf.py:650)."""
+        if j == 0:
+            return self.t0
+        return self.t0 + (self.first + 1 + (j - 1) * self.d) * self.h
+
     def _live_stages(self) -> List[bool]:
         """Stages whose slope reaches the propagated solution."""
-        tab = self.tableau
+        tab = self.solver.tableau
         s_count = tab.num_stages
         live = [False] * s_count
         for s in reversed(range(s_count)):
@@ -241,12 +322,10 @@ class ChainMath:
             )
         return live
 
-    def predict(self, x, p_mat, params, qg):
-        """One EKF predict: the RK step with the columns of P carried as
-        tangents through every stage, then P <- sqrt_sum(J P, gamma^1/2 Q)
-        (pallas_ekf.py:480-498)."""
-        n, tab, h = self.n, self.tableau, self.h
-        cols = [[p_mat[i][c] for i in range(n)] for c in range(n)]
+    def _erk_step(self, t, x, cols, params):
+        """The RK step and the tangents of its stages along the columns of P
+        (pallas_ekf.py:171)."""
+        n, tab, h = self.n, self.solver.tableau, self.h
         ks, dks = [], []
         for s, live in enumerate(self._live_stages()):
             if not live:
@@ -261,10 +340,65 @@ class ChainMath:
                 ha = h * a
                 yi = [yi[k] + ha * ks[j][k] for k in range(n)]
                 dyi = [[dyi[c][k] + ha * dks[j][c][k] for k in range(n)] for c in range(n)]
-            ks.append(self.rhs(yi, params))
-            dks.append([self.rhs_jvp(yi, dyi[c], params) for c in range(n)])
+            t_s = t + tab.c[s] * h
+            ks.append(self.rhs(t_s, yi, params))
+            dks.append([self.rhs_jvp(t_s, yi, dyi[c], params) for c in range(n)])
+        return ks, dks, tab.b_sol
+
+    def _kvaerno3_step(self, t, x, cols, params):
+        """The Kvaerno3 step (pallas_ekf.py:291-364): a base-point Jacobian
+        and inverse drive ``newton_iters`` simplified-Newton iterations per
+        implicit stage; the stage tangents follow the implicit-function rule
+        dz = (I - h gamma J(z*))^-1 d(known), with J and the inverse taken
+        at the stage solution z*, then dk = J(z*) dz. The small matrices
+        are stacked [B, n, n] tensors here (``ops/small_inv.py``, batched
+        products), so the plain version runs far fewer operations than an
+        elementwise transliteration; the sums run in another order than the
+        kernel's."""
+        n, h = self.n, self.h
+        h_gamma = h * sdirk._GAMMA
+        eye = torch.eye(n, dtype=x[0].dtype, device=x[0].device)
+
+        def f(ti, z):  # [B, n] -> [B, n]
+            return torch.stack(self.rhs(ti, list(z.unbind(-1)), params), -1)
+
+        def slope_and_inverse(ti, z):
+            jac = sdirk.jacobian(lambda zz: f(ti, zz), z)
+            return f(ti, z), jac, inv_small(eye - h_gamma * jac)
+
+        xs = torch.stack(x, -1)
+        p_cols = torch.stack([torch.stack(col, -1) for col in cols], -1)  # [B, n, n]: column c of P
+        k0, jac0, minv0 = slope_and_inverse(t, xs)
+        ks, dks = [k0], [jac0 @ p_cols]
+        for i in range(1, 4):
+            t_i = t + sdirk._C[i] * h
+            known, dknown = xs, p_cols
+            for j in range(i):
+                a = sdirk._A[i][j]
+                if a != 0.0:
+                    known = known + (h * a) * ks[j]
+                    dknown = dknown + (h * a) * dks[j]
+            z = known + h_gamma * ks[i - 1]
+            for _ in range(self.solver.newton_iters):
+                r = z - known - h_gamma * f(t_i, z)
+                z = z - (minv0 @ r[..., None])[..., 0]
+            k_sol, jac_sol, minv_sol = slope_and_inverse(t_i, z)
+            ks.append(k_sol)
+            dks.append(jac_sol @ (minv_sol @ dknown))
+        ks = [list(k.unbind(-1)) for k in ks]
+        dks = [[list(dk[..., c].unbind(-1)) for c in range(n)] for dk in dks]
+        return ks, dks, sdirk._B_SOL
+
+    def predict(self, t, x, p_mat, params, qg):
+        """One EKF predict at time t: the solver step with the columns of P
+        carried as tangents through every stage, then
+        P <- sqrt_sum(J P, gamma^1/2 Q) (pallas_ekf.py:480-498)."""
+        n, h = self.n, self.h
+        cols = [[p_mat[i][c] for i in range(n)] for c in range(n)]
+        step = self._kvaerno3_step if self.implicit else self._erk_step
+        ks, dks, b_sol = step(t, x, cols, params)
         x_next, p_cols = list(x), [list(col) for col in cols]
-        for s, b in enumerate(tab.b_sol):
+        for s, b in enumerate(b_sol):
             if b == 0.0:
                 continue
             hb = h * b
@@ -326,28 +460,35 @@ class ChainMath:
         log_det = sum(torch.log(torch.abs(s_sqrt[l][l])) for l in range(L))
         return x_new, p_new, half_maha + self.nll_const + log_det
 
-    def interval(self, x, p_mat, params, qg, r_const, y_vals, count):
-        """``count`` predicts followed by one correct."""
-        for _ in range(count):
-            x, p_mat = self.predict(x, p_mat, params, qg)
-        return self.correct(x, p_mat, y_vals, r_const)
+    def interval(self, x, p_mat, params, qg, r_const, y_vals, count, t_base):
+        """``count`` predicts from time ``t_base`` (a zero-dim tensor),
+        followed by one correct; step i starts at ``t_base + i h``
+        (pallas_ekf.py:581-604), or with ``accumulate_time`` at
+        ``t_base + h + ... + h``. Returns the time after the last step too."""
+        t_acc = t_base
+        for i in range(count):
+            t = t_acc if self.accumulate_time else t_base + float(i) * self.h
+            x, p_mat = self.predict(t, x, p_mat, params, qg)
+            t_acc = t_acc + self.h
+        return (*self.correct(x, p_mat, y_vals, r_const), t_acc)
 
     def rig_doubles(self) -> List[float]:
-        """The constants in the layout of ``unpack_rig`` in csrc/nll_fwd.cu."""
+        """The constants in the layout of ``unpack_rig`` in csrc/ekf_chain.cuh."""
         flat = lambda m: [v for row in m for v in row]
-        vals = [self.t0, self.h, self.first, self.d, self.n_obs, self.nll_const]
+        iters = self.solver.newton_iters if self.implicit else 0
+        vals = [self.t0, self.h, self.first, self.d, self.n_obs, self.nll_const, iters, self.accumulate_time]
         vals += list(self.x0) + flat(self.p0) + flat(self.H) + flat(self.R) + flat(self.Q)
         vals += [self.offsets[k] for k in _MODEL_PARAMS[self.model_name]]
         return [float(v) for v in vals]
 
 
-def build_chain_math(model, solver, spec, obs, state0, q_sqrt) -> ChainMath:
+def build_chain_math(model, solver, spec, obs, state0, q_sqrt, accumulate_time: bool = False) -> ChainMath:
     uniform = detect_uniform(obs)
     if uniform is None:
         raise ValueError("the NLL kernel needs a uniform observation grid read in row order")
     if model.name not in TILE_RHS:
         raise ValueError(f"no tile RHS for model {model.name!r}")
-    if not isinstance(solver, ERK):
+    if not isinstance(solver, (ERK, Kvaerno3)):
         raise TypeError(f"unsupported solver for the NLL kernel: {solver!r}")
     first, d, n_obs = uniform
     rhs, rhs_jvp = TILE_RHS[model.name]
@@ -367,7 +508,7 @@ def build_chain_math(model, solver, spec, obs, state0, q_sqrt) -> ChainMath:
         model_name=model.name,
         rhs=rhs,
         rhs_jvp=rhs_jvp,
-        tableau=solver.tableau,
+        solver=solver,
         h=float(solver.h),
         t0=float(state0.t),
         first=first,
@@ -383,6 +524,7 @@ def build_chain_math(model, solver, spec, obs, state0, q_sqrt) -> ChainMath:
         Q=to_list(q_sqrt),
         offsets=offsets,
         k_params=off,
+        accumulate_time=accumulate_time,
     )
 
 
@@ -401,9 +543,13 @@ def nll_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt)
     def y(j):
         return [ys[j, l] for l in range(cm.L)]
 
-    x, p_mat, nll = cm.interval(x, p_mat, params, qg, r_const, y(0), cm.first + 1)
+    def t_base(j, t_acc):
+        return t_acc if cm.accumulate_time else like.new_full((), cm.t_start(j))
+
+    t_acc = like.new_full((), cm.t0)
+    x, p_mat, nll, t_acc = cm.interval(x, p_mat, params, qg, r_const, y(0), cm.first + 1, t_base(0, t_acc))
     for j in range(1, cm.n_obs):
-        x, p_mat, nlg = cm.interval(x, p_mat, params, qg, r_const, y(j), cm.d)
+        x, p_mat, nlg, t_acc = cm.interval(x, p_mat, params, qg, r_const, y(j), cm.d, t_base(j, t_acc))
         nll = nll + nlg
     return nll
 
@@ -414,7 +560,10 @@ def nll_grad_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_
     :func:`nll_plain`. Returns ``(dphys [K, B], dgamma)``, the cotangent ``g``
     [B] pulled back to the parameter rows and to ``gamma_sqrt``; ``dgamma``
     has the shape of ``gamma_sqrt`` (a scalar sums over lanes, a [B] tensor
-    gives each lane's share)."""
+    gives each lane's share). Raises for an implicit (Kvaerno3) step, whose
+    gradient must follow the stage-solve rule, not the Newton loop."""
+    if cm.implicit:
+        raise NotImplementedError(_NO_IMPLICIT_GRAD)
     with torch.enable_grad():
         phys = phys_t.detach().requires_grad_(True)
         gs = torch.as_tensor(gamma_sqrt, dtype=phys_t.dtype, device=phys_t.device)
@@ -491,7 +640,7 @@ class NllFwd:
                 cm.n,
                 cm.L,
                 _MODEL_IDS[cm.model_name],
-                _TABLEAU_IDS[cm.tableau.name],
+                _SOLVER_IDS[cm.solver.name],
                 phys_t.data_ptr(),
                 cm.k_params,
                 batch,
@@ -532,8 +681,11 @@ class NllGrad:
     def launch(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor,
                with_dgamma: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One kernel launch on the current stream: ``(dphys [K, B], each
-        lane's share of dgamma [B] or None)``."""
+        lane's share of dgamma [B] or None)``. Raises for an implicit step
+        (no Kvaerno3 instantiation of the gradient kernel yet)."""
         cm = self.cm
+        if cm.implicit:
+            raise NotImplementedError(_NO_IMPLICIT_GRAD)
         batch = _check_rows(cm, phys_t, self.ys)
         g = g.to(phys_t.dtype).contiguous()
         if g.shape != (batch,) or g.device != phys_t.device:
@@ -548,7 +700,7 @@ class NllGrad:
                 cm.n,
                 cm.L,
                 _MODEL_IDS[cm.model_name],
-                _TABLEAU_IDS[cm.tableau.name],
+                _SOLVER_IDS[cm.solver.name],
                 phys_t.data_ptr(),
                 cm.k_params,
                 batch,
@@ -586,23 +738,28 @@ class NllKernelFunction(torch.autograd.Function):
         return dphys, dgamma, None
 
 
-def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt) -> NllFwd:
+def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt,
+                  accumulate_time: bool = False) -> NllFwd:
     """Builds the kernel wrapper for a configuration :func:`supports` covers.
     ``q_sqrt`` [n, n] is a constant of the experiment; the tempering scale
-    ``gamma_sqrt`` is a call argument."""
+    ``gamma_sqrt`` is a call argument. ``accumulate_time`` switches the step
+    times to the XLA path's running sum (to measure the gap between the two
+    rules; the entry points keep the tiles' rule)."""
     del num_steps  # the uniform grid fixes the horizon that matters
     if not supports(model, solver, ekf, obs):
         raise ValueError("configuration not covered by the NLL kernel (see supports())")
-    return NllFwd(build_chain_math(model, solver, spec, obs, state0, q_sqrt), spec, obs.ys)
+    cm = build_chain_math(model, solver, spec, obs, state0, q_sqrt, accumulate_time)
+    return NllFwd(cm, spec, obs.ys)
 
 
-def make_nll_tiles(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt) -> Callable:
-    """The plain version alone, on any device and for any ERK tableau and
-    size: ``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]``."""
+def make_nll_tiles(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt,
+                   accumulate_time: bool = False) -> Callable:
+    """The plain version alone, on any device, for any ERK tableau or
+    Kvaerno3 and any size: ``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]``."""
     del num_steps
     if not getattr(ekf, "disable_cov_update", False):
         raise ValueError("the tile NLL covers disable_cov_update=True only")
-    cm = build_chain_math(model, solver, spec, obs, state0, q_sqrt)
+    cm = build_chain_math(model, solver, spec, obs, state0, q_sqrt, accumulate_time)
     ys = obs.ys[: cm.n_obs].to(cm.dtype)
 
     def nll_b(p_norm_b: torch.Tensor, gamma_sqrt) -> torch.Tensor:

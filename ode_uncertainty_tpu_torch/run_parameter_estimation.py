@@ -8,19 +8,24 @@
   evaluate — NLL landscape over a parameter grid per tempering stage; writes
              ``param_evals``, ``nll_evals``, ``gammas`` and ``timings``.
 
-When ``supports()`` holds, the NLL goes through the CUDA kernels of
-``ops/nll_kernel.py`` (``nll_fwd``, and for ``optimize``'s gradient
-``nll_bwd``), or their plain versions on CPU tensors; else through the port's
-``make_nll`` (with autograd for the gradient), which on the CPU runs about
-ten times slower than the plain versions (its linearization goes through
-``torch.func.jvp``). Results go to the ``output`` path: H5, or ``.npz`` for a
-path with that suffix.
+When ``supports()`` holds and ``initial_state_parametrized`` is off, the NLL
+goes through the CUDA kernels of ``ops/nll_kernel.py`` (``nll_fwd``, and for
+``optimize``'s gradient ``nll_bwd``), or their plain versions on CPU tensors;
+else through the port's ``make_nll`` (with autograd for the gradient), which
+on the CPU runs about ten times slower than the plain versions (its
+linearization goes through ``torch.func.jvp``). ``parameter_sensitivity`` is
+not ported and raises; so does ``optimize`` with the Kvaerno3 solver (its
+gradient kernel is not ported yet). Results go to the ``output`` path: H5,
+or ``.npz`` for a path with that suffix.
 
 Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
+      --experiment params/hodgkinhuxley1_r4 \\
+      --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_r4.npz [--set device=cpu --set tN=0.3]
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ode_uncertainty_tpu_torch.inference import (
 )
 from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops.nll_kernel import make_nll_cuda, supports
+from ode_uncertainty_tpu_torch.solvers import Kvaerno3
 from ode_uncertainty_tpu_torch.utils.carry import Rig
 from ode_uncertainty_tpu_torch.utils.checkpoint import run_stage_grid
 from ode_uncertainty_tpu_torch.utils.config import apply_runtime_config, config_cli, parse_literal
@@ -96,11 +102,24 @@ def build_rig(cfg, dtype, device) -> Rig:
 RESTART_CHUNK = 512
 
 
-def batched_nll(rig: Rig, cfg):
+def batched_nll(rig: Rig, cfg, grad: bool = False):
     """``(nll_b(p [B, P_opt], gamma_sqrt) -> [B], on_kernels)``: the NLL
     kernels' wrapper (differentiable through nll_bwd) when they cover the
-    configuration, else the port's make_nll at the rig's q_sqrt."""
-    if supports(rig.model, rig.solver, rig.ekf, rig.obs):
+    configuration (with ``grad``, the gradient kernel too) and no estimation
+    flag asks for more than they compute, else the port's make_nll at the
+    rig's q_sqrt.
+
+    ``initial_state_parametrized`` builds each lane's initial state from its
+    parameters, which the kernels (one x0 for every lane) do not; it takes
+    make_nll. ``parameter_sensitivity`` (reference ``inference/nll.py:92-106``)
+    is not ported on either route and raises."""
+    if cfg.get("parameter_sensitivity", False):
+        raise NotImplementedError(
+            "parameter_sensitivity=true is not ported yet (the sensitivity-weighted process noise of "
+            "the reference's inference/nll.py:92-106); run with parameter_sensitivity=false"
+        )
+    init_param = bool(cfg.get("initial_state_parametrized", False))
+    if not init_param and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad):
         return make_nll_cuda(
             rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt
         ), True
@@ -113,8 +132,7 @@ def batched_nll(rig: Rig, cfg):
         rig.state0,
         rig.num_steps,
         x0_raw=rig.x0_raw,
-        initial_state_parametrized=cfg.get("initial_state_parametrized", False),
-        parameter_sensitivity=cfg.get("parameter_sensitivity", False),
+        initial_state_parametrized=init_param,
     )
     return (lambda p, gamma_sqrt: nll(p, rig.q_sqrt, gamma_sqrt)), False
 
@@ -144,12 +162,21 @@ def optimize(cfg) -> dict:
             "optimizer_mode=device (the on-device L-BFGS, inference/lbfgs.py) is not ported yet; "
             "use optimizer_mode=host"
         )
+    if isinstance(cfg["solver_builder"], Kvaerno3):
+        # make_nll + autograd would differentiate the Newton loop, not the
+        # reference's stage-solve rule
+        raise NotImplementedError(
+            "optimize with the Kvaerno3 (implicit) solver needs the NLL gradient through the "
+            "stage-solve rule: the Kvaerno3 gradient kernel (the counterpart of bwd_kernel, "
+            "ode_uncertainty_tpu/ops/pallas_ekf.py:752-860) is the next slice of the port and is not "
+            "ported yet; evaluate runs on this configuration"
+        )
     rig = build_rig(cfg, dtype, device)
     spec = rig.spec
     gammas = gammas_of(cfg, dtype)
     p0 = initial_restarts(cfg, spec, dtype)
 
-    nll_b, on_kernels = batched_nll(rig, cfg)
+    nll_b, on_kernels = batched_nll(rig, cfg, grad=True)
     route = "nll_fwd + nll_bwd kernels" if on_kernels else "make_nll + autograd"
 
     # per-unit record: wall seconds, value-and-gradient dispatches and the

@@ -11,7 +11,8 @@ config.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import re
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -19,8 +20,13 @@ import torch
 from ode_uncertainty_tpu_torch.filters.sqrt_ekf import EKFState, SqrtEKF
 from ode_uncertainty_tpu_torch.inference.observations import ObsModel, compact_rows
 from ode_uncertainty_tpu_torch.inference.params import ParamSpec
-from ode_uncertainty_tpu_torch.models import MODEL_REGISTRY, ODEModel
-from ode_uncertainty_tpu_torch.solvers import TABLEAUS, ERK
+from ode_uncertainty_tpu_torch.models import (
+    MODEL_REGISTRY,
+    ODEModel,
+    hodgkin_huxley,
+    multi_compartment_hodgkin_huxley,
+)
+from ode_uncertainty_tpu_torch.solvers import TABLEAUS, ERK, Kvaerno3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +34,7 @@ class Rig:
     """Everything the tempered NLL of one experiment is built from."""
 
     model: ODEModel
-    solver: ERK
+    solver: Union[ERK, Kvaerno3]
     ekf: SqrtEKF
     spec: ParamSpec
     obs: ObsModel
@@ -38,12 +44,23 @@ class Rig:
     x0_raw: torch.Tensor
 
 
+def _model_named(name: str) -> ODEModel:
+    """The model whose ``ODEModel.name`` is ``name``, at its defaults."""
+    hh = re.fullmatch(r"hodgkin_huxley_(full|reduced-1|reduced-4)(?:_x(\d+))?", name)
+    if hh and hh.group(2):
+        return multi_compartment_hodgkin_huxley(hh.group(1), int(hh.group(2)))
+    if hh:
+        return hodgkin_huxley(hh.group(1))
+    return {f().name: f for f in MODEL_REGISTRY.values()}[name]()
+
+
 def rig_from_numpy(d: Dict, device="cuda", dtype=torch.float32) -> Rig:
     """Builds the port's rig from a JAX rig's values.
 
     Keys of ``d``:
       * ``model``: the model's name (``ODEModel.name``), ``params``: {name: value};
-      * ``tableau`` (e.g. ``"rkf45"``), ``h``, ``num_steps``, ``t0``;
+      * ``tableau`` (e.g. ``"rkf45"``, or ``"kvaerno3"`` with an optional
+        ``newton_iters``, default 6), ``h``, ``num_steps``, ``t0``;
       * ``disable_cov_update``;
       * ParamSpec: ``spec_keys``, ``spec_shapes``, ``defaults``, ``mins``,
         ``maxs``, ``opt_mask`` (bool over the flat vector);
@@ -54,12 +71,14 @@ def rig_from_numpy(d: Dict, device="cuda", dtype=torch.float32) -> Rig:
     rows no step reads are dropped), which leaves every step's value as is.
     """
     t = lambda a, dt=dtype: torch.as_tensor(np.array(a), dtype=dt, device=device)
-    factories = {f().name: f for f in MODEL_REGISTRY.values()}
-    model = factories[d["model"]]()
     model = dataclasses.replace(
-        model, params={k: torch.as_tensor(np.asarray(v, np.float64)) for k, v in d["params"].items()}
+        _model_named(d["model"]),
+        params={k: torch.as_tensor(np.asarray(v, np.float64)) for k, v in d["params"].items()},
     )
-    solver = ERK(TABLEAUS[d["tableau"]], float(d["h"]))
+    if d["tableau"] == "kvaerno3":
+        solver = Kvaerno3(float(d["h"]), int(d.get("newton_iters", 6)))
+    else:
+        solver = ERK(TABLEAUS[d["tableau"]], float(d["h"]))
     ekf = SqrtEKF(disable_cov_update=bool(d["disable_cov_update"]))
 
     mask = np.asarray(d["opt_mask"], bool)

@@ -39,6 +39,24 @@ def _sqrt_ekf_adapter(
     return SqrtEKF(cov_update=cu or DiagonalUpdate(), disable_cov_update=disable_cov_update)
 
 
+def _hh_adapter(model: str = None, variant: str = "reduced-1", **kwargs):
+    """Accepts the reference configs' ``model`` name for the variant."""
+    from ode_uncertainty_tpu_torch.models import hodgkin_huxley
+
+    return hodgkin_huxley(variant=model or variant, **kwargs)
+
+
+def _mc_hh_adapter(model: str = None, variant: str = "reduced-1", **kwargs):
+    """Multi-compartment HH; reference configs pass per-compartment vectors
+    as stringified python lists."""
+    from ode_uncertainty_tpu_torch.models import multi_compartment_hodgkin_huxley
+
+    parsed = {k: parse_literal(v) if isinstance(v, str) else v for k, v in kwargs.items()}
+    if "coupling_coeffs" in parsed and not isinstance(parsed["coupling_coeffs"], (list, tuple)):
+        parsed["coupling_coeffs"] = [parsed["coupling_coeffs"]]
+    return multi_compartment_hodgkin_huxley(variant=model or variant, **parsed)
+
+
 def _registries() -> Dict[str, Callable]:
     from ode_uncertainty_tpu_torch.filters import COV_UPDATE_REGISTRY, FILTER_REGISTRY
     from ode_uncertainty_tpu_torch.inference.schedules import SCHEDULE_REGISTRY
@@ -49,6 +67,8 @@ def _registries() -> Dict[str, Callable]:
     for reg in (MODEL_REGISTRY, SOLVER_REGISTRY, FILTER_REGISTRY, COV_UPDATE_REGISTRY, SCHEDULE_REGISTRY):
         merged.update(reg)
     merged["SQRT_EKF"] = _sqrt_ekf_adapter
+    merged["HodgkinHuxley"] = _hh_adapter
+    merged["MultiCompartmentHodgkinHuxley"] = _mc_hh_adapter
     return merged
 
 

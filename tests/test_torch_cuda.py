@@ -1,5 +1,6 @@
-"""The nll_fwd and nll_bwd CUDA kernels against their plain PyTorch
-versions, on the card.
+"""The nll_fwd and nll_bwd CUDA kernels (and nll_fwd's Kvaerno3
+Hodgkin-Huxley instantiations) against their plain PyTorch versions, on the
+card.
 
 Imports only torch, numpy and the port, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py``.
@@ -8,8 +9,14 @@ them at full size). Tolerances: values, float64 rtol 1e-9 and float32 rtol
 2e-4 / atol 1e-4 against the float32 plain version; gradients, float64 rtol
 1e-9 (elements where the plain gradient is 0 relative to its largest
 magnitude) and float32 |k - p| / (|p| + 1) <= 5e-3 against the float64 plain
-version (the gradient rtol of tests/test_pallas_ekf.py).
+version (the gradient rtol of tests/test_pallas_ekf.py). Kvaerno3 values
+(HH reduced-4 and full, 200 steps across the stimulus onset, on the
+committed observations): float64 rtol 1e-9; float32 lane-normalized
+|k - p| / (|p| + 1) <= 5e-4 against the float64 plain version (the implicit
+value tolerance of tests/test_pallas_ekf.py:314).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +26,9 @@ from ode_uncertainty_tpu_torch import models, solvers
 from ode_uncertainty_tpu_torch.filters import SqrtEKF
 from ode_uncertainty_tpu_torch.inference import make_obs_model, make_param_spec
 from ode_uncertainty_tpu_torch.ops import const_diag, nll_kernel
+from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment, parse_literal
+
+DATA = Path(__file__).resolve().parents[1] / "ode_uncertainty_tpu_torch" / "data"
 
 
 def _kernel(dtype, obs_rows, num_steps=200, obs_every=5):
@@ -111,3 +121,62 @@ def test_autograd_function_launches_both_kernels_on_the_card():
     np.testing.assert_allclose(p.grad.cpu().numpy(), q.grad.cpu().numpy(), rtol=1e-9)
     assert gs.grad.device.type == "cpu"
     np.testing.assert_allclose(float(gs.grad), float(gq.grad), rtol=1e-9)
+
+
+def _hh_kernel(experiment, data, dtype, t0=9.9, steps=200):
+    """An HH experiment's Kvaerno3 rig of ``steps`` steps from the rest state
+    at t0, on the committed observation rows at those times, varying g_Na
+    (the main path's parameter; over hodgkinhuxley7_full's seven-parameter
+    box float32 itself is ~4e-3 off float64, see PERF.md)."""
+    cfg = build_config(load_experiment(experiment), {"device": "cuda"})
+    model, solver, ekf = cfg["ode_builder"], cfg["solver_builder"], cfg["filter_builder"]
+    n = model.state_size
+    x0 = model.build_initial_value(torch.tensor([[-70.0]], dtype=torch.float64), model.params)
+    obs_file = np.load(DATA / data)
+    rows = slice(int(round(t0 / solver.h)) + 1, int(round(t0 / solver.h)) + steps + 1)
+    obs = make_obs_model(np.asarray(parse_literal(cfg["measurement_matrix"]), float), obs_file["t"][rows],
+                         obs_file["x"][rows].reshape(steps, -1), cfg["obs_noise_var"], t0, solver.h, steps,
+                         dtype=dtype, device="cuda")
+    spec = make_param_spec(model.params, cfg["params_range"], {k: k == "g_Na" for k in model.params},
+                           dtype=dtype, device="cuda")
+    state0 = ekf.init_state(t0, x0.to(dtype).cuda(), const_diag(n, 1e-12, dtype, "cuda"), obs.obs_dim)
+    return nll_kernel.make_nll_cuda(model, solver, ekf, spec, obs, state0, steps,
+                                    torch.eye(n, dtype=dtype, device="cuda"))
+
+
+_PLAIN: dict = {}
+
+
+def _hh_plain(experiment, data, p, gammas):
+    """The float64 plain version on the host's CPU (faster there than on the
+    card, where each of its small operations is a launch), once per rig."""
+    if experiment not in _PLAIN:
+        fn64 = _hh_kernel(experiment, data, torch.float64)
+        phys = fn64.physical(p).cpu()
+        _PLAIN[experiment] = nll_kernel.nll_plain(fn64.cm, phys, fn64.ys.cpu(), gammas.cpu()).numpy()
+    return _PLAIN[experiment]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("experiment,data", [("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"),
+                                             ("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz")])
+def test_kvaerno3_kernel_matches_plain_version_on_the_card(dtype, experiment, data):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the nll_fwd kernel has no CPU mode (chip_smoke.py runs it)")
+    fn = _hh_kernel(experiment, data, getattr(torch, dtype))
+    p = torch.as_tensor(np.random.default_rng(4).uniform(size=(16, fn.spec.num_opt)), device="cuda")
+    gammas = torch.tensor([0.1] * 16 + [0.0] * 16, dtype=torch.float64)
+    want = _hh_plain(experiment, data, torch.cat([p, p]), gammas)
+    before = nll_kernel.launches["nll_fwd"]
+    got = torch.cat([fn(p, 0.1), fn(p, 0.0)])
+    torch.cuda.synchronize()
+    assert nll_kernel.launches["nll_fwd"] == before + 2
+    got = got.double().cpu().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "float64":
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=0.0)
+    else:
+        assert (np.abs(got - want) / (np.abs(want) + 1.0)).max() <= 5e-4
+    with pytest.raises(NotImplementedError, match="Kvaerno3"):
+        fn.grad.launch(fn.physical(p), 0.1, torch.ones(16, dtype=fn.cm.dtype, device="cuda"))

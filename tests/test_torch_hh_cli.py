@@ -1,0 +1,90 @@
+"""The port's ``evaluate`` on params/hodgkinhuxley1_r4 (Kvaerno3, the
+kernel's route: its plain version on the CPU) against the JAX CLI, the
+committed npz copies of the Hodgkin-Huxley observation files, and
+``optimize`` on a Kvaerno3 experiment, which raises until the Kvaerno3
+gradient kernel is ported.
+
+Both CLIs run float64 at a cut horizon (``tN=0.3``, 30 steps, before the
+stimulus starts at t = 10, so the two routes' time rules agree) on the
+shipped H5 file; the NLL landscape agrees at rtol 1e-9, the grid exactly,
+the tempering schedule to rtol 1e-15 (the JAX CLI computes it with
+``jnp.power``, the port with ``np.power``).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import h5py
+import numpy as np
+import pytest
+
+from ode_uncertainty_tpu_torch import run_parameter_estimation as rpe
+from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment
+
+REPO = Path(__file__).resolve().parent.parent
+DATA = REPO / "ode_uncertainty_tpu_torch" / "data"
+
+
+def _run(args, cwd, home, timeout=600):
+    env = {
+        "PYTHONPATH": str(REPO),
+        "JAX_PLATFORMS": "cpu",
+        "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+        "HOME": str(home),
+    }
+    out = subprocess.run([sys.executable, *args], capture_output=True, text=True, env=env,
+                         cwd=cwd, timeout=timeout)
+    assert out.returncode == 0, f"{args} failed:\n{out.stdout}\n{out.stderr}"
+    return out.stdout
+
+
+def test_hh_evaluate_cli_matches_jax_cli(tmp_path):
+    port_out, jax_out = tmp_path / "port.h5", tmp_path / "jax.h5"
+    common = ["evaluate", "--experiment", "params/hodgkinhuxley1_r4", "--set", "tN=0.3",
+              "--set", "float64=true"]
+    stdout = _run(["-m", "ode_uncertainty_tpu_torch.run_parameter_estimation", *common,
+                   "--set", "device=cpu", "--set", f"output={port_out}"], cwd=tmp_path, home=tmp_path)
+    assert "nll_fwd kernel" in stdout  # the kernel's route (its plain version on the CPU)
+    _run(["run_parameter_estimation.py", *common, "--set", "platform=cpu",
+          "--set", f"output={jax_out}"], cwd=REPO / "scripts", home=tmp_path)
+    with h5py.File(port_out, "r") as got, h5py.File(jax_out, "r") as ref:
+        assert sorted(got) == sorted(ref) == ["gammas", "nll_evals", "param_evals", "timings"]
+        np.testing.assert_array_equal(got["param_evals"][()], ref["param_evals"][()])
+        np.testing.assert_allclose(got["gammas"][()], ref["gammas"][()], rtol=1e-15, atol=0.0)
+        assert got["timings"].shape == ref["timings"].shape
+        assert got["nll_evals"].shape == (4, 100)
+        np.testing.assert_allclose(got["nll_evals"][()], ref["nll_evals"][()], rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("name", ["hodgkinhuxley_r4", "hodgkinhuxley_full"])
+def test_npz_copies_equal_the_observation_files(name):
+    with h5py.File(REPO / "results" / "noise_gt" / f"{name}.h5", "r") as ref, \
+            np.load(DATA / f"{name}.npz", allow_pickle=False) as got:
+        assert sorted(got.files) == ["t", "x"]
+        for key in ("t", "x"):
+            assert got[key].dtype == ref[key].dtype == np.float32
+            assert got[key].shape[0] == 10001
+            np.testing.assert_array_equal(got[key], ref[key][()])
+
+
+def test_hh_evaluate_reads_the_npz_copy(tmp_path):
+    cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+                       {"device": "cpu", "tN": 0.05, "y_path": str(DATA / "hodgkinhuxley_r4.npz"),
+                        "num_param_evals": {"g_Na": 3}, "output": str(tmp_path / "out.npz")})
+    res = rpe.evaluate(cfg)
+    h5_cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+                          {"device": "cpu", "tN": 0.05, "num_param_evals": {"g_Na": 3},
+                           "output": str(tmp_path / "h5.npz")})
+    ref = rpe.evaluate(h5_cfg)
+    assert res["route"] == "nll_fwd kernel" and res["nll_evals"].shape == (4, 3)
+    np.testing.assert_array_equal(res["nll_evals"], ref["nll_evals"])
+
+
+def test_optimize_on_kvaerno3_raises(tmp_path):
+    cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+                       {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
+    with pytest.raises(NotImplementedError, match="Kvaerno3 gradient kernel"):
+        rpe.optimize(cfg)
+    assert not (tmp_path / "out.npz").exists()
