@@ -43,23 +43,24 @@ Phases, each printing one JSON line with its own wall seconds:
                   and beta. Prints each stage's wall time, dispatches and the
                   lanes still active at the iteration limit.
   7. timing       one nll_fwd launch of evaluate's shape and one nll_bwd launch
-                  at optimize's widest dispatch, each the median of 7 CUDA-event
-                  timings, beside its bound and its plain version's time at a
-                  cut horizon of 200 steps; the nll_bwd launch also with
-                  d/d gamma^1/2 and in float64.
+                  at optimize's widest dispatch on its optimized rows, each the
+                  median of 7 CUDA-event timings, beside its bound and its plain
+                  version's time at a cut horizon of 200 steps; the nll_bwd
+                  launch also over every row, with d/d gamma^1/2 and in float64.
   8. throughput   bench.py's `lv` workload: B = 8192, 2000 steps, H = I,
                   an observation every 10 steps, float32, gamma = 0.01; median
                   of CUDA-event-timed launches; the plain version once at
                   B = 1024, 200 steps.
   9. hh_parity    the Kvaerno3 nll_fwd (float64 and float32) against its float64
-                  plain version (on the host's CPU) on 200-step Hodgkin-Huxley
-                  rigs with the committed observations, 256 lanes, half at the
-                  first stage's gamma^1/2 and half at 0: reduced-4 and full
-                  across the stimulus onset (t0 = 9.9, rest state, g_Na
-                  varied), reduced-4 through the first spike (x0: the port's
-                  float64 Kvaerno3 solve at t = 23.5); float64 rtol 1e-9,
-                  float32 p99 <= 5e-4. Full over hodgkinhuxley7_full's seven
-                  parameters on 64 lanes: float64 held, float32 reported.
+                  plain version (on the host's CPU) on Hodgkin-Huxley rigs with
+                  the committed observations, 256 lanes, half at the first
+                  stage's gamma^1/2 and half at 0: reduced-4 (200 steps) and
+                  full (100 steps) across the stimulus onset (t0 = 9.9, rest
+                  state, g_Na varied), reduced-4 through the first spike (x0:
+                  the port's float64 Kvaerno3 solve at t = 23.5, 200 steps);
+                  float64 rtol 1e-9, float32 p99 <= 5e-4. Full over
+                  hodgkinhuxley7_full's seven parameters on 64 lanes (100
+                  steps): float64 held, float32 reported.
  10. hh_full_horizon  params/hodgkinhuxley1_r4 at its 10^4 steps on
                   evaluate's grid: float32 kernel against float64 kernel (p99
                   <= 5e-4), and the float64 gap between the step-index time
@@ -73,9 +74,37 @@ Phases, each printing one JSON line with its own wall seconds:
                   bench.py's hh_full shape (B = 512, n = 8, 10^4 steps, f32),
                   median of 7, beside the operation bound and the plain
                   version at a cut horizon of 20 steps.
- 13. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
-                  nll_fwd with the Kvaerno3 step, nll_bwd), the nvidia-smi
-                  line, then the device line.
+ 13. hh_grad_parity  the Kvaerno3 nll_bwd (float64 and float32) against its
+                  float64 plain version (on the host's CPU) on the 200-step
+                  reduced-4 onset (t0 = 9.9) and spike (t0 = 23.5) rigs, 64
+                  lanes, half at the first stage's gamma^1/2 and half at 0,
+                  g_Na varied, every parameter row and each lane's
+                  d/d gamma^1/2: float64 max relative error <= 1e-8, float32
+                  p99 of the lane-normalized error <= 1e-2 (the implicit
+                  gradient rtol of tests/test_pallas_ekf.py:319); and a launch
+                  over the optimized row alone against one over every row.
+ 14. hh_grad_full_horizon  params/hodgkinhuxley1_r4 at its 10^4 steps on 8
+                  points of evaluate's grid at every stage: the float64
+                  kernel gradient in g_Na against central differences of the
+                  float64 nll_fwd (relative step 1e-7, lane-normalized error
+                  <= 1e-4), and the float32 kernel gradient against the
+                  float64 one (p99 <= 1e-2, held at the stages listed in
+                  HH_GRAD_F32_HELD_STAGES, reported at every stage).
+ 15. hh_optimize  the port's `optimize` on params/hodgkinhuxley1_r4 at full
+                  width (100 restarts, 4 stages, 10^4 steps, float32,
+                  lbfgs_maxiter HH_LBFGS_MAXITER) on the committed npz
+                  observations, the counts set to 0 just before: shape, both
+                  kernels launched, >= 95% of restarts finite, the best final
+                  NLL at most the generating parameters' (gamma = 0, same
+                  kernel) plus 1e-3 relative, the best g_Na within 10% of
+                  25.0; wall time, dispatches per stage, the widest dispatch.
+ 16. hh_grad_timing  one Kvaerno3 nll_bwd launch at hh_optimize's widest
+                  dispatch, median of 7: float32 on the optimized row, with
+                  d/d gamma^1/2, and in float64; beside the bound and the
+                  plain gradient at a cut horizon of 20 steps.
+ 17. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+                  nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
+                  Kvaerno3 step), the nvidia-smi line, then the device line.
 
 The build phase reports each instantiation's registers, spills and ptxas
 time. Files too long for the output (the ptxas report, the synthesized
@@ -122,11 +151,30 @@ PLAIN_TIMING_STEPS = 200  # the plain versions are timed at this cut horizon
 HH_EXPERIMENT = "params/hodgkinhuxley1_r4"
 HH_DATA = ROOT / "ode_uncertainty_tpu_torch" / "data"
 HH_RIG_STEPS = 200  # horizon of the Kvaerno3 parity rigs
+# horizon of hh_parity's two HH-full rigs: their plain runs on the CPU took
+# ~52 s each at 200 steps; cut to keep the script near its time target
+HH_FULL_RIG_STEPS = 100
 HH_PARITY_LANES = 256
 HH_P99_F32 = 5e-4  # the implicit value tolerance of tests/test_pallas_ekf.py:314
 HH_GRID_CHECK = 8
 HH_PLAIN_TIMING_STEPS = 20  # the Kvaerno3 plain version costs ~0.2 s a step on the card
 HH_GNA_TRUE = 25.0  # the generating g_Na (models/hodgkin_huxley.py _SINGLE_DEFAULTS)
+HH_GRAD_LANES = 64
+HH_GRAD_P99_F32 = 1e-2  # the implicit gradient rtol of tests/test_pallas_ekf.py:319
+HH_FD_REL_STEP = 1e-7  # central differences in g_Na over the full horizon
+HH_FD_TOL = 1e-4  # |kernel - differences| / (|differences| + 1)
+# Stages where the float32 gradient is held to the float64 one over the full
+# horizon. At stage 0 the lane at g_Na = 80 sits where the NLL curves
+# sharply (central differences reach the float64 gradient only as the step
+# shrinks to 1e-7 of g_Na) and float32 rounding moves its gradient by more
+# than the limit: reported, with the float32 and float64 gradients at
+# neighbouring g_Na (HH_F32_PROBE_REL apart) beside it.
+HH_GRAD_F32_HELD_STAGES = (1, 2, 3)
+HH_F32_PROBE_REL = 1e-6
+# hh_optimize's depth: the experiment's 200 took 336 s on the card (a
+# straggler ran stage 2 to 113 iterations, 245 s); the width (100 restarts,
+# 4 stages, 10^4 steps, float32, the real observations) is not cut.
+HH_LBFGS_MAXITER = 40
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth, non-tensor float32 and float64 FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -216,7 +264,9 @@ def ops_per_lane(cm, phys=None) -> int:
     y = [like for _ in range(cm.L)]
     counts = []
     for count in (cm.first + 1, cm.d):
-        with OpCounter() as c:
+        # without autograd: the Kvaerno3 step re-attaches its stage solutions
+        # for reverse mode only, work the forward kernel does not do
+        with torch.no_grad(), OpCounter() as c:
             cm.interval(x, p_mat, params, qg, r_const, y, count, like.new_full((), cm.t0))
         counts.append(c.ops)
     return counts[0] + (cm.n_obs - 1) * counts[1]
@@ -387,7 +437,7 @@ def parity(name, make, grid_norm=None, grid_gammas=None) -> dict:
     return out
 
 
-def compare_grads(kernel_vals, plain_vals, exact: bool) -> dict:
+def compare_grads(kernel_vals, plain_vals, exact: bool, p99_limit: float = GRAD_P99_F32) -> dict:
     """[K + 1, B] gradients (parameter rows, then each lane's d/d gamma^1/2)
     of the kernel against the float64 plain version."""
     k = kernel_vals.double().cpu().numpy()
@@ -405,8 +455,8 @@ def compare_grads(kernel_vals, plain_vals, exact: bool) -> dict:
     else:
         err = diff / (np.abs(p) + 1.0)
         stat.update(p99_lane_err=float(np.quantile(err, 0.99)), max_lane_err=float(err.max()),
-                    p99_limit=GRAD_P99_F32)
-        ok = stat["p99_lane_err"] <= GRAD_P99_F32
+                    p99_limit=p99_limit)
+        ok = stat["p99_lane_err"] <= p99_limit
     if not ok:
         raise AssertionError(f"nll_bwd disagrees with its plain version: {stat}")
     return stat
@@ -503,6 +553,41 @@ def hh_parity(name, make, gamma_sqrt, f32_limit=HH_P99_F32, lanes=HH_PARITY_LANE
                           for sl, g in ((slice(0, half), gamma_sqrt), (slice(half, None), 0.0))])
         torch.cuda.synchronize()
         out[f"kernel_{label}_vs_plain_f64"] = compare(vals, plain64, exact, f32_limit)
+    return out
+
+
+def hh_grad_parity(name, make, gamma_sqrt, lanes=HH_GRAD_LANES) -> dict:
+    """Kvaerno3 nll_bwd (float64 and float32) against the float64 plain
+    gradient on the host's CPU, every parameter row and each lane's
+    d/d gamma^1/2, ``lanes`` random lanes half at ``gamma_sqrt`` and half at
+    0 with a random cotangent; then a float32 launch over the optimized
+    rows alone against the launch over every row."""
+    rng = np.random.default_rng(SEED + 3)
+    k64, k32 = make(torch.float64), make(torch.float32)
+    half = lanes // 2
+    p = torch.as_tensor(rng.uniform(size=(lanes, k64.spec.num_opt)), device=DEVICE)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=lanes), device=DEVICE)
+    gs = torch.as_tensor(np.repeat([gamma_sqrt, 0.0], half), device=DEVICE)
+    phys64 = k64.physical(p).cpu()
+    (dphys, dgamma), plain_ms = sync_time(
+        lambda: nll_kernel.nll_grad_plain(k64.cm, phys64, k64.ys.cpu(), gs.cpu(), g.cpu()))
+    plain = torch.cat([dphys, dgamma[None]])
+    out = {"rig": name, "n": k64.cm.n, "t0": k64.cm.t0, "steps": k64.cm.n_obs, "lanes": lanes,
+           "directions": k64.cm.k_params + 1, "gamma_sqrt": gamma_sqrt, "plain_f64_cpu_ms": plain_ms}
+    halves = ((slice(0, half), gamma_sqrt), (slice(half, None), 0.0))
+    for label, kern, exact in (("f64", k64, True), ("f32", k32, False)):
+        parts = [kern.grad.launch(kern.physical(p[sl]), gsv, g[sl].to(kern.cm.dtype)) for sl, gsv in halves]
+        got = torch.cat([torch.cat([dp, dg[None]]) for dp, dg in parts], dim=1)
+        torch.cuda.synchronize()
+        out[f"kernel_{label}_vs_plain_f64"] = compare_grads(got, plain, exact, HH_GRAD_P99_F32)
+        if label == "f32":
+            rows = list(k32.opt_rows)
+            part, _ = k32.grad.launch(k32.physical(p[:half]), gamma_sqrt, g[:half].float(), False, k32.opt_rows)
+            torch.cuda.synchronize()
+            others = [r for r in range(k32.cm.k_params) if r not in rows]
+            if not torch.equal(part[rows], parts[0][0][rows]) or part[others].any():
+                raise AssertionError("nll_bwd over the optimized rows disagrees with the launch over every row")
+            out["optimized_rows_launch"] = {"rows": rows, "equal_to_all_rows_launch": True}
     return out
 
 
@@ -652,15 +737,17 @@ def main() -> int:
 
     with Phase("grad_timing") as ph:
         # one nll_bwd launch as optimize makes it: its widest dispatch, the
-        # first stage's gamma, the parameter rows only (no d/d gamma)
+        # first stage's gamma, the optimized rows only (no d/d gamma)
         kern = lv2_kernel(cfg, torch.float32)
         p = torch.rand((widest, 2), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
                        dtype=torch.float32, device=DEVICE)
         phys = kern.physical(p)
         g = torch.ones(widest, dtype=torch.float32, device=DEVICE)
-        kern.grad.launch(phys, opt_gamma_sqrt, g, False)
+        kern.grad.launch(phys, opt_gamma_sqrt, g, False, kern.opt_rows)
         torch.cuda.synchronize()
-        ms = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, False), 7)
+        ms = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, False, kern.opt_rows), 7)
+        # beside it: every parameter row (the launch before the direction list)
+        ms_all_rows = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, False), 7)
         _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(kern.cm, PLAIN_TIMING_STEPS), phys, kern.ys,
                                                                    opt_gamma_sqrt, g))
         b_ms, b_by, ops = bound_ms(kern.cm, widest, grad=True)
@@ -673,15 +760,16 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         # beside it: the same launch with d/d gamma^1/2 (one direction more),
         # and in float64
-        ms_dgamma = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, True), 7)
+        ms_dgamma = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, True, kern.opt_rows), 7)
         k64 = lv2_kernel(cfg, torch.float64)
         phys64, g64 = k64.physical(p.double()), g.double()
-        k64.grad.launch(phys64, opt_gamma_sqrt, g64, False)
-        ms64 = event_times(lambda: k64.grad.launch(phys64, opt_gamma_sqrt, g64, False), 7)
+        k64.grad.launch(phys64, opt_gamma_sqrt, g64, False, k64.opt_rows)
+        ms64 = event_times(lambda: k64.grad.launch(phys64, opt_gamma_sqrt, g64, False, k64.opt_rows), 7)
         ms64_fwd = event_times(lambda: k64.launch(phys64, opt_gamma_sqrt), 7)
-        ph.info.update(shape=f"B={widest}, K={kern.cm.k_params} directions, L={kern.cm.L}, d={kern.cm.d}, "
-                             f"n_obs={kern.cm.n_obs}, float32, gamma^1/2={opt_gamma_sqrt:.6g}",
-                       event_ms=ms, ops=ops, library_call="none",
+        ph.info.update(shape=f"B={widest}, {len(kern.opt_rows)} of K={kern.cm.k_params} directions, L={kern.cm.L}, "
+                             f"d={kern.cm.d}, n_obs={kern.cm.n_obs}, float32, gamma^1/2={opt_gamma_sqrt:.6g}",
+                       event_ms=ms, ops=ops, library_call="none", median_ms=float(np.median(ms)),
+                       event_ms_all_rows=ms_all_rows, median_ms_all_rows=float(np.median(ms_all_rows)),
                        event_ms_with_dgamma=ms_dgamma, event_ms_float64=ms64, nll_fwd_event_ms_float64=ms64_fwd)
 
     with Phase("throughput") as ph:
@@ -716,14 +804,14 @@ def main() -> int:
         onset_r4 = hh_parity("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state",
                              lambda dt: hh_kernel(hh_cfg, dt, 9.9, HH_RIG_STEPS), hh_gs0)
         onset_full = hh_parity("HH full onset, t0 = 9.9, rest state, g_Na varied",
-                               lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_RIG_STEPS, data="hodgkinhuxley_full.npz",
-                                                    optimized=("g_Na",)), hh_gs0)
+                               lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS,
+                                                    data="hodgkinhuxley_full.npz", optimized=("g_Na",)), hh_gs0)
         # hodgkinhuxley7_full's seven-parameter box: the float32 plain
         # version itself is ~4e-3 (p99) off the float64 one there, so float32
         # is reported, not held; float64 is held at 1e-9 (64 lanes: an extra
         # rig, kept short in the script's time)
         box_full = hh_parity("HH full onset, t0 = 9.9, hodgkinhuxley7_full's 7 parameters varied",
-                             lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_RIG_STEPS,
+                             lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS,
                                                   data="hodgkinhuxley_full.npz"), hh_gs0, f32_limit=None, lanes=64)
         spike_r4 = hh_parity("hodgkinhuxley1_r4 spike, t0 = 23.5",
                              lambda dt: hh_kernel(hh_cfg, dt, 23.5, HH_RIG_STEPS, x0=x_spike), hh_gs0)
@@ -821,9 +909,132 @@ def main() -> int:
                    "ms": hh_ms, "plain_ms": hh_plain_ms, "plain_steps": HH_PLAIN_TIMING_STEPS,
                    "bound_ms": hh_b_ms, "bound_by": hh_b_by, "library_ms": None}
 
+    # ---- Hodgkin-Huxley optimize through the Kvaerno3 nll_fwd and nll_bwd ----
+    with Phase("hh_grad_parity") as ph:
+        onset = hh_grad_parity("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state",
+                               lambda dt: hh_kernel(hh_cfg, dt, 9.9, HH_RIG_STEPS), hh_gs0)
+        spike = hh_grad_parity("hodgkinhuxley1_r4 spike, t0 = 23.5",
+                               lambda dt: hh_kernel(hh_cfg, dt, 23.5, HH_RIG_STEPS, x0=x_spike), hh_gs0)
+        ph.info.update(onset_r4=onset, spike_r4=spike)
+
+    with Phase("hh_grad_full_horizon") as ph:
+        # the main path's rig at its full horizon, 8 points of evaluate's
+        # grid: the float64 gradient in g_Na against central differences of
+        # the float64 forward kernel, and the float32 gradient against it
+        idx8 = np.linspace(0, grid.shape[0] - 1, HH_GRID_CHECK).astype(int)
+        p8 = grid[idx8]
+        row = k64.opt_rows[0]
+        ones = torch.ones(len(idx8), dtype=torch.float64, device=DEVICE)
+        stages = []
+        for stage, gam in enumerate(hh_gammas.tolist()):
+            gsv = gam ** 0.5
+            d64 = k64.grad.launch(k64.physical(p8), gsv, ones, False, k64.opt_rows)[0][row]
+            d32 = k32.grad.launch(k32.physical(p8.float()), gsv, ones.float(), False, k32.opt_rows)[0][row]
+            phys = k64.physical(p8)
+            plus, minus = phys.clone(), phys.clone()
+            plus[row] += HH_FD_REL_STEP * phys[row]
+            minus[row] -= HH_FD_REL_STEP * phys[row]
+            fd = (k64.launch(plus, gsv) - k64.launch(minus, gsv)) / (plus[row] - minus[row])
+            torch.cuda.synchronize()
+            fd_err = ((d64 - fd).abs() / (fd.abs() + 1.0)).cpu().numpy()
+            k, r = d32.double().cpu().numpy(), d64.cpu().numpy()
+            f32_err = np.abs(k - r) / (np.abs(r) + 1.0)
+            entry = {"stage": stage, "gamma": gam, "grad_f64": r.tolist(), "grad_f32": k.tolist(),
+                     "fd_max_lane_err": float(fd_err.max()), "fd_tol": HH_FD_TOL,
+                     "f32_nonfinite": int((~np.isfinite(k)).sum()),
+                     "f32_p99_lane_err": float(np.quantile(f32_err, 0.99)), "f32_max_lane_err": float(f32_err.max()),
+                     "f32_held": stage in HH_GRAD_F32_HELD_STAGES}
+            stages.append(entry)
+            if not np.isfinite(r).all() or not fd_err.max() <= HH_FD_TOL:
+                raise AssertionError(f"float64 nll_bwd disagrees with central differences of nll_fwd: {entry}")
+            if not entry["f32_held"]:
+                # the worst lane's gradients at neighbouring g_Na: float32
+                # rounding, not the kernel, if the float32 ones scatter
+                # while the float64 ones stay put
+                lane = int(np.nanargmax(np.where(np.isfinite(f32_err), f32_err, np.inf)))
+                near = p8[lane:lane + 1].repeat(8, 1)
+                phys_near = k64.physical(near)
+                phys_near[row] *= 1.0 + HH_F32_PROBE_REL * torch.arange(-4, 4, dtype=torch.float64, device=DEVICE)
+                ones8 = torch.ones(8, dtype=torch.float64, device=DEVICE)
+                entry["probe"] = {
+                    "g_na": phys_near[row].tolist(),
+                    "grad_f64": k64.grad.launch(phys_near, gsv, ones8, False, k64.opt_rows)[0][row].tolist(),
+                    "grad_f32": k32.grad.launch(phys_near.float(), gsv, ones8.float(), False,
+                                                k32.opt_rows)[0][row].tolist()}
+            if entry["f32_held"] and not entry["f32_p99_lane_err"] <= HH_GRAD_P99_F32:
+                raise AssertionError(f"float32 nll_bwd disagrees with the float64 kernel: {entry}")
+        ph.info.update(steps=k64.cm.n_obs, lanes=len(idx8), g_na=k64.physical(p8)[row].tolist(),
+                       fd_rel_step=HH_FD_REL_STEP, f32_p99_limit=HH_GRAD_P99_F32,
+                       f32_held_stages=list(HH_GRAD_F32_HELD_STAGES), stages=stages)
+
+    hh_opt_path = OUT / "hh_optimize.npz"
+    for stale in OUT.glob("hh_optimize.npz*"):
+        stale.unlink()
+    with Phase("hh_optimize") as ph:
+        hh_opt_cfg = hh_config(out_path=hh_opt_path)
+        hh_opt_cfg["lbfgs_maxiter"] = HH_LBFGS_MAXITER
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        res = optimize(hh_opt_cfg)
+        wall = time.perf_counter() - t0
+        hh_opt_counts = dict(nll_kernel.launches)
+        final = np.asarray(res["nll_optims"][:, -1], np.float64)
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 1):
+            raise AssertionError(f"HH optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if min(hh_opt_counts.values()) <= 0 or res["route"] != "nll_fwd + nll_bwd kernels":
+            raise AssertionError(f"HH optimize did not run both kernels: {hh_opt_counts}, {res['route']}")
+        finite = np.isfinite(final)
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 HH restarts end finite")
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        # the NLL at the generating parameters, gamma = 0, by the same kernel
+        truth = float(k32.launch(k32.physical(k32.spec.defaults_norm_opt()[None]), 0.0)[0])
+        if not final[best] <= truth + 1e-3 * abs(truth):
+            raise AssertionError(f"best final HH NLL {final[best]} above the generating parameters' {truth}")
+        g_na_best = float(res["params_optims"][best, -1, 0])
+        if abs(g_na_best - HH_GNA_TRUE) > 0.10 * HH_GNA_TRUE:
+            raise AssertionError(f"best g_Na {g_na_best} not within 10% of {HH_GNA_TRUE}")
+        ph.info.update(launches=hh_opt_counts, route=res["route"], optimize_wall_s=wall, restarts=100, stages=4,
+                       steps=k64.cm.n_obs, lbfgs_maxiter=HH_LBFGS_MAXITER, finite_final=int(finite.sum()),
+                       best_final_nll=float(final[best]), nll_at_generating_params=truth, best_g_na=g_na_best,
+                       generating_g_na=HH_GNA_TRUE, units=res["units"],
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       output=str(hh_opt_path.relative_to(ROOT)))
+    hh_widest = max(u["widest"] for u in res["units"])
+
+    with Phase("hh_grad_timing") as ph:
+        # one nll_bwd launch as optimize makes it: its widest dispatch at the
+        # first stage's gamma, the optimized row only (no d/d gamma)
+        p = torch.rand((hh_widest, 1), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                       dtype=torch.float32, device=DEVICE)
+        phys32, g32 = k32.physical(p), torch.ones(hh_widest, dtype=torch.float32, device=DEVICE)
+        launch = lambda: k32.grad.launch(phys32, hh_gs0, g32, False, k32.opt_rows)
+        launch()
+        torch.cuda.synchronize()
+        ms = event_times(launch, 7)
+        ms_dgamma = event_times(lambda: k32.grad.launch(phys32, hh_gs0, g32, True, k32.opt_rows), 7)
+        phys64, g64 = k64.physical(p.double()), g32.double()
+        ms64 = event_times(lambda: k64.grad.launch(phys64, hh_gs0, g64, False, k64.opt_rows), 7)
+        _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(k32.cm, HH_PLAIN_TIMING_STEPS), phys32,
+                                                                   k32.ys, hh_gs0, g32, k32.opt_rows))
+        b_ms, b_by, ops = bound_ms(k32.cm, hh_widest, grad=True)
+        hh_bwd_line = {"name": "nll_bwd (Kvaerno3 step)", "route": "cuda",
+                       "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cuh",
+                       "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:851 (Kvaerno3 step, stage-solve rule :301-332)",
+                       "launches": hh_opt_counts["nll_bwd"],
+                       "max_abs_err": onset["kernel_f32_vs_plain_f64"]["max_abs_err"],
+                       "ms": float(np.median(ms)), "plain_ms": plain_ms, "plain_steps": HH_PLAIN_TIMING_STEPS,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        ph.info.update(shape=f"B={hh_widest}, 1 direction (g_Na), n={k32.cm.n}, L=1, d=1, n_obs={k32.cm.n_obs}, "
+                             f"float32, gamma^1/2={hh_gs0:.6g}",
+                       event_ms=ms, ops=ops, library_call="none", event_ms_with_dgamma=ms_dgamma,
+                       event_ms_float64=ms64, median_ms=float(np.median(ms)),
+                       median_ms_with_dgamma=float(np.median(ms_dgamma)), median_ms_float64=float(np.median(ms64)))
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
-    emit({"kernels": [fwd_line, hh_line, bwd_line]})
+    emit({"kernels": [fwd_line, hh_line, bwd_line, hh_bwd_line]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

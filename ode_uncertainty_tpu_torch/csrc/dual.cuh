@@ -2,7 +2,10 @@
 // and one tangent, with the operations that math uses. Comparisons act on
 // the value; |v| has the tangent sign(v) dv with sign(0) = 0, as in PyTorch
 // and JAX. Instantiating the chain on Dual<S> gives the NLL and its exact
-// derivative along the seeded direction (nll_bwd.cu).
+// derivative along the seeded direction (nll_bwd.cuh). For the
+// Hodgkin-Huxley rate laws it also has exp_t and expm1_t, the operations of
+// a jet of duals (Jet<Dual<S>, N>, the Jacobian with its derivative) with
+// constants of type S, and the Kvaerno3 stage solution's tangent.
 
 #pragma once
 
@@ -70,14 +73,36 @@ __device__ __forceinline__ Dual<S> operator/(Dual<S> a, Dual<S> b) {
   return {q, (a.d - q * b.d) / b.v};
 }
 template <typename S>
+__device__ __forceinline__ Dual<S> operator/(Dual<S> a, S b) {
+  return {a.v / b, a.d / b};
+}
+template <typename S>
 __device__ __forceinline__ Dual<S> operator/(S a, Dual<S> b) {
   const S q = a / b.v;
   return {q, -(q * b.d) / b.v};
 }
 template <typename S>
+__device__ __forceinline__ Dual<S> exp_t(Dual<S> a) {
+  const S e = exp_t(a.v);
+  return {e, e * a.d};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> expm1_t(Dual<S> a) {
+  const S e = expm1_t(a.v);
+  return {e, (e + S(1)) * a.d};
+}
+template <typename S>
+__device__ __forceinline__ S value_of(Dual<S> a) {
+  return a.v;
+}
+// At 0 (a QR column that is exactly zero, which float32 reaches when the
+// covariance underflows at gamma = 0) the tangent is 0, not 0/0: that
+// column's reflection is skipped (`live` false), and without it the NaN
+// of the unused reflector would reach every entry through a product with 0.
+template <typename S>
 __device__ __forceinline__ Dual<S> sqrt(Dual<S> a) {
   const S r = ::sqrt(a.v);
-  return {r, a.d / (S(2) * r)};
+  return {r, a.v > S(0) ? a.d / (S(2) * r) : S(0)};
 }
 template <typename S>
 __device__ __forceinline__ Dual<S> log(Dual<S> a) {
@@ -105,6 +130,100 @@ __device__ __forceinline__ bool operator!=(Dual<S> a, Dual<S> b) {
   return a.v != b.v;
 }
 
+// A jet of duals with constants of type S (the rate laws' literals): the
+// constant has no tangent of either kind.
+template <typename S, int M>
+struct Scalar<Jet<Dual<S>, M>> {
+  using type = S;
+};
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator+(const Jet<Dual<S>, M>& a, S b) {
+  Jet<Dual<S>, M> r = a;
+  r.v = a.v + b;
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator+(S a, const Jet<Dual<S>, M>& b) {
+  Jet<Dual<S>, M> r = b;
+  r.v = a + b.v;
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator-(const Jet<Dual<S>, M>& a, S b) {
+  Jet<Dual<S>, M> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator-(S a, const Jet<Dual<S>, M>& b) {
+  Jet<Dual<S>, M> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int k = 0; k < M; ++k) r.d[k] = -b.d[k];
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator*(const Jet<Dual<S>, M>& a, S b) {
+  Jet<Dual<S>, M> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int k = 0; k < M; ++k) r.d[k] = a.d[k] * b;
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator*(S a, const Jet<Dual<S>, M>& b) {
+  Jet<Dual<S>, M> r;
+  r.v = a * b.v;
+#pragma unroll
+  for (int k = 0; k < M; ++k) r.d[k] = a * b.d[k];
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator/(const Jet<Dual<S>, M>& a, S b) {
+  Jet<Dual<S>, M> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int k = 0; k < M; ++k) r.d[k] = a.d[k] / b;
+  return r;
+}
+template <typename S, int M>
+__device__ __forceinline__ Jet<Dual<S>, M> operator/(S a, const Jet<Dual<S>, M>& b) {
+  Jet<Dual<S>, M> r;
+  r.v = a / b.v;
+#pragma unroll
+  for (int k = 0; k < M; ++k) r.d[k] = -(r.v * b.d[k]) / b.v;
+  return r;
+}
+
+// The tangent of a Kvaerno3 stage solution z* by the stage solve's
+// implicit-function rule (pallas_ekf.py:312-332): dz = M^-1 dG with
+// M = I - h g J(z*) and G = known + h g f(t_s, z*, p) at z* held fixed, so
+// dG = d(known) + h g (df/dp) dp, the RHS evaluated on duals with z's
+// tangent zero. M^-1 is taken on the values; the Newton loop that found
+// z* carries no tangent.
+template <typename S>
+struct StageSolution<Dual<S>> {
+  template <class Model, int N>
+  __device__ __forceinline__ static void attach(const typename Model::template Params<Dual<S>>& p,
+                                                const typename Model::template Params<S>& pv, S ts,
+                                                S hg, const Dual<S> (&known)[N], const S (&z)[N],
+                                                Dual<S> (&out)[N]) {
+    S f[N], jac[N][N], minv[N][N];
+    rhs_jacobian<Model, S>(pv, ts, z, f, jac);
+    newton_inverse<S, N>(jac, hg, minv);
+    Dual<S> zd[N], fd[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) zd[i] = Dual<S>(z[i]);
+    Model::rhs(p, ts, zd, fd);
+    S dg[N], dz[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) dg[i] = known[i].d + hg * fd[i].d;
+    matvec<S, N>(minv, dg, dz);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = Dual<S>(z[i], dz[i]);
+  }
+};
+
 // Parameters as duals, with tangent 1 on the one that row `dir` holds.
 template <typename S>
 __device__ __forceinline__ LotkaVolterra::Params<Dual<S>> seed(const LotkaVolterra::Params<S>& p,
@@ -113,6 +232,14 @@ __device__ __forceinline__ LotkaVolterra::Params<Dual<S>> seed(const LotkaVolter
           {p.beta, S(poff[1] == dir)},
           {p.gamma, S(poff[2] == dir)},
           {p.delta, S(poff[3] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ HHParams<Dual<S>> seed(const HHParams<S>& p, const int* poff, int dir) {
+  return {{p.C, S(poff[0] == dir)},       {p.A, S(poff[1] == dir)},      {p.g_Na, S(poff[2] == dir)},
+          {p.E_Na, S(poff[3] == dir)},    {p.g_K, S(poff[4] == dir)},    {p.E_K, S(poff[5] == dir)},
+          {p.g_leak, S(poff[6] == dir)},  {p.E_leak, S(poff[7] == dir)}, {p.V_T, S(poff[8] == dir)},
+          {p.g_M, S(poff[9] == dir)},     {p.tau_max, S(poff[10] == dir)}, {p.g_L, S(poff[11] == dir)},
+          {p.E_Ca, S(poff[12] == dir)},   {p.g_T, S(poff[13] == dir)},   {p.V_x, S(poff[14] == dir)}};
 }
 
 }  // namespace

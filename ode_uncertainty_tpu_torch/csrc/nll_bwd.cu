@@ -2,10 +2,15 @@
 //
 // Replaces the TPU kernel `bwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (body `_bwd_body` :752-828, VMEM variant :851, HBM-snapshot variant :832,
-// launched by `_bwd_call` :892) for an explicit Runge-Kutta step. Given the
-// per-lane cotangent g of the NLL it computes, per lane,
-//   dphys[k] = g * dNLL/dphys[k]   for every row k of the parameter matrix,
+// launched by `_bwd_call` :892) for an explicit Runge-Kutta step
+// (Lotka-Volterra) and for the Kvaerno3 step (`_make_sdirk_step_tiles`
+// :291-364 with the stage solve's custom_jvp :301-332; Hodgkin-Huxley
+// reduced-4). Given the per-lane cotangent g of the NLL it computes, per
+// lane and for each direction of the launch's list,
+//   dphys[k] = g * dNLL/dphys[k]   for a parameter row k in the list,
 //   dgamma   = g * dNLL/dgamma_sqrt (summed over lanes by the caller).
+// The rows not in the list are left as the caller initialized them (the
+// wrapper zeroes them): the optimizer asks for its optimized rows only.
 // Its plain PyTorch version, which the tests and the on-card comparison hold
 // this kernel against, is `nll_grad_plain` in
 // ode_uncertainty_tpu_torch/ops/nll_kernel.py (reverse-mode autograd through
@@ -22,8 +27,22 @@
 // being one parameter row or gamma^1/2. The tangent of the NLL is then the
 // exact directional derivative, and there is nothing to snapshot: the state
 // per thread is twice the forward's, in registers. The grid is
-// (ceil(B / 32), directions); every thread recomputes the primal, which
-// costs nothing in wall time while the launch fills less than the card.
+// (ceil(B / 32), directions asked for); every thread recomputes the primal,
+// which costs nothing in wall time while the launch fills less than the card.
+//
+// The Kvaerno3 step on duals (ekf_chain.cuh `kvaerno3_stages`, dual.cuh
+// `StageSolution`): the simplified-Newton iterations run on the values only
+// (the reference's base-point inverse is a stop_gradient and the guess's
+// tangent is dropped); the stage solution's tangent is set by the
+// implicit-function rule, (I - h g J(z*))^-1 (d known + h g df/dp dp), and
+// the Jacobian at z* is a jet of duals, so J(z*), its inverse and the stage
+// tangents of P's columns carry their derivative: the rule differentiated,
+// as JAX differentiates it in the TPU kernel's reverse sweep, never the
+// unrolled iterations. Per direction and step that is the forward's work on
+// duals (a jet of duals for each of the four Jacobians, dual Gauss-Jordan
+// inverses) plus, per implicit stage, one value Jacobian and inverse and one
+// dual RHS; the Newton iterations stay on values. Hodgkin-Huxley reduced-4
+// only (n = 4, one unit per type, nll_bwd_hh4_{f32,f64}.cu).
 //
 // Tangent rules: a comparison or a select (the QR's max-abs scale and its
 // `scale > 0` guard, the sign, the zero-column guard `vnorm_sq > eps`) acts
@@ -32,79 +51,61 @@
 //
 // Bound on the H100. Per (lane, direction) the dual arithmetic does about
 // three times the forward's operations (a product is three, a quotient
-// five), and the launch does K + 1 directions (5 for Lotka-Volterra), so the
-// operations are ~15x the forward launch's; memory sees (2K + 2) B +
-// n_obs L values. Like the forward it is latency-bound at the widths the
-// optimizer dispatches (100 to 800 lanes, 500 to 4000 threads): the time is
-// one thread's dependent chain, now of dual operations.
+// five), and a launch does one thread per (lane, direction); memory sees
+// (2K + 2) B + n_obs L values. Like the forward it is latency-bound at the
+// widths the optimizer dispatches (100 to 800 lanes, one to five
+// directions): the time is one thread's dependent chain, now of dual
+// operations.
 
-#include "dual.cuh"
-#include "ekf_chain.cuh"
+#include "nll_bwd.cuh"
 
-namespace {
+// One unit each (nll_bwd_hh4_*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4, in
+// float and double.
+#define ODEUQ_DECLARE(NAME)                                                                    \
+  extern "C" int NAME(const void* phys, int k_params, int batch, const void* ys, const double* rig, \
+                      double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,   \
+                      void* dgamma, void* stream);
+ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f32)
+ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f64)
+#undef ODEUQ_DECLARE
 
-constexpr int kThreads = 32;
-
-// blockIdx.y is the direction: rows 0..k_params-1 of the parameter matrix,
-// then (if dgamma is not null) gamma^1/2.
-template <typename S, int N, int L, class Model, class Tab>
-__global__ void __launch_bounds__(kThreads)
-    nll_bwd_kernel(const S* __restrict__ phys, int k_params, int batch, const S* __restrict__ ys,
-                   const Rig<S, N, L> rig, const S gamma_sqrt, const S* __restrict__ g,
-                   S* __restrict__ dphys, S* __restrict__ dgamma) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int dir = blockIdx.y;
-  if (lane >= batch) return;
-  const typename Model::template Params<S> p = Model::template load<S>(phys, batch, lane, rig.poff);
-  const typename Model::template Params<Dual<S>> pd = seed(p, rig.poff, dir);
-  const Dual<S> gs(gamma_sqrt, S(dir == k_params));
-  const Dual<S> nll = chain_nll<Dual<S>, N, L, Model, Tab>(rig, pd, gs, ys);
-  const S out = g[lane] * nll.d;
-  if (dir < k_params)
-    dphys[static_cast<size_t>(dir) * batch + lane] = out;
-  else
-    dgamma[lane] = out;
-}
-
-template <typename S, int L, class Model, class Tab>
-int launch(const void* phys, int k_params, int batch, const void* ys, const double* rig_host,
-           double gamma_sqrt, const void* g, void* dphys, void* dgamma, cudaStream_t stream) {
-  constexpr int N = Model::N;
-  const Rig<S, N, L> rig = unpack_rig<S, N, L, Model>(rig_host);
-  if (rig.n_obs < 1 || rig.d < 1 || rig.first < 0) return -3;
-  const dim3 grid((batch + kThreads - 1) / kThreads, k_params + (dgamma != nullptr ? 1 : 0));
-  nll_bwd_kernel<S, N, L, Model, Tab><<<grid, kThreads, 0, stream>>>(
-      static_cast<const S*>(phys), k_params, batch, static_cast<const S*>(ys), rig, S(gamma_sqrt),
-      static_cast<const S*>(g), static_cast<S*>(dphys), static_cast<S*>(dgamma));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra. tableau: 0 RKF45.
+// dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
+// reduced-4. tableau: 0 RKF45, 1 Kvaerno3. Instantiated: Lotka-Volterra x
+// RKF45 (n = 2, L = 1 or 2) and Hodgkin-Huxley reduced-4 x Kvaerno3 (L = 1).
 // phys: [k_params, batch]; ys: [n_obs, obs_dim]; g: [batch] NLL cotangent;
-// out dphys: [k_params, batch]; out dgamma: [batch] per-lane contributions
-// to d/d gamma^1/2, or null to skip that direction.
-// Returns 0, a cudaError_t code (> 0), or the negative codes of odeuq_nll_fwd.
+// rows: the n_rows parameter rows to differentiate (host memory, distinct);
+// out dphys: [k_params, batch], written on those rows; out dgamma: [batch]
+// per-lane contributions to d/d gamma^1/2, or null to skip that direction.
+// Returns 0, a cudaError_t code (> 0), the negative codes of odeuq_nll_fwd,
+// or -4 for an invalid direction list.
 extern "C" int odeuq_nll_bwd(int dtype, int n, int obs_dim, int model, int tableau,
                              const void* phys, int k_params, int batch, const void* ys,
-                             const double* rig, double gamma_sqrt, const void* g, void* dphys,
-                             void* dgamma, void* stream) {
-  if (model != 0 || tableau != 0 || n != LotkaVolterra::N || k_params < LotkaVolterra::K)
-    return -1;
+                             const double* rig, double gamma_sqrt, const void* g, const int* rows,
+                             int n_rows, void* dphys, void* dgamma, void* stream) {
   if (batch <= 0) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && obs_dim == 1)
-    return launch<float, 1, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                  dphys, dgamma, s);
-  if (dtype == 0 && obs_dim == 2)
-    return launch<float, 2, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                  dphys, dgamma, s);
-  if (dtype == 1 && obs_dim == 1)
-    return launch<double, 1, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                   dphys, dgamma, s);
-  if (dtype == 1 && obs_dim == 2)
-    return launch<double, 2, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                   dphys, dgamma, s);
+  if (model == 0 && tableau == 0 && n == LotkaVolterra::N && k_params >= LotkaVolterra::K) {
+    if (dtype == 0 && obs_dim == 1)
+      return launch<float, 1, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                    rows, n_rows, dphys, dgamma, s);
+    if (dtype == 0 && obs_dim == 2)
+      return launch<float, 2, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                    rows, n_rows, dphys, dgamma, s);
+    if (dtype == 1 && obs_dim == 1)
+      return launch<double, 1, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                     rows, n_rows, dphys, dgamma, s);
+    if (dtype == 1 && obs_dim == 2)
+      return launch<double, 2, LotkaVolterra, Rkf45>(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                     rows, n_rows, dphys, dgamma, s);
+    return -1;
+  }
+  if (model == 1 && tableau == 1 && n == 4 && obs_dim == 1 && k_params >= HodgkinHuxley<4>::K) {
+    if (dtype == 0)
+      return odeuq_nll_bwd_hh4_f32(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
+                                   dgamma, stream);
+    if (dtype == 1)
+      return odeuq_nll_bwd_hh4_f64(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
+                                   dgamma, stream);
+  }
   return -1;
 }

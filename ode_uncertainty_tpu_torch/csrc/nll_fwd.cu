@@ -111,5 +111,6 @@ extern "C" const char* odeuq_error_string(int code) {
   if (code == -1) return "no kernel instantiation for this model, tableau, state or observation size";
   if (code == -2) return "empty batch";
   if (code == -3) return "invalid observation grid";
+  if (code == -4) return "invalid direction list";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

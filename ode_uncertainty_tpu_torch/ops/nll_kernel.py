@@ -4,7 +4,8 @@ kernels and their plain PyTorch versions.
 Port of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The TPU kernel
 ``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` and ``bwd_kernel`` becomes
 ``csrc/nll_bwd.cu`` (one thread per lane, or per lane and parameter
-direction; built by ``utils/cuda_build.py``). The tile math they run
+direction; the Kvaerno3 instantiations in ``csrc/nll_fwd_hh*.cu`` and
+``csrc/nll_bwd_hh*.cu``; built by ``utils/cuda_build.py``). The tile math they run
 (``_build_chain_math`` and ``make_nll_tiles``) becomes :class:`ChainMath` and
 :func:`nll_plain`, which evaluate the same arithmetic on lists of ``[B]``
 tensors; :func:`nll_grad_plain` differentiates it with autograd. The tests
@@ -26,9 +27,10 @@ Scope (:func:`supports`): the exact ``SqrtEKF`` type with
 and a (model, solver) pair and (state, observation) size the kernels are
 instantiated for: Lotka-Volterra with RKF45, n = 2 and L = 1 or 2 (both
 kernels); the three single-compartment Hodgkin-Huxley variants with
-Kvaerno3, n = 4, 7 or 8 and L = 1 (``nll_fwd`` only: the gradient of the
-implicit step is not ported yet, and :class:`NllGrad` and
-:func:`nll_grad_plain` raise for it).
+Kvaerno3, n = 4, 7 or 8 and L = 1 (``nll_fwd``), of which reduced-4
+(n = 4) also has ``nll_bwd``; :meth:`NllGrad.launch` raises for the
+others. The gradient of the implicit step follows the stage solve's
+implicit-function rule, not the Newton loop (``ChainMath._kvaerno3_step``).
 
 Time: step i of observation interval j starts at ``t_start(j) + i h``,
 ``t_start`` computed from the step index in double precision and rounded
@@ -43,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import importlib
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,18 +138,22 @@ _SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1}
 # "bwd" (nll_bwd, the gradient)
 _KERNELS = {
     ("lotka_volterra", "rkf45"): ("fwd", "bwd"),
-    ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd",),
+    ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd", "bwd"),
     ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd",),
     ("hodgkin_huxley_full", "kvaerno3"): ("fwd",),
 }
 _SIZES = {(2, 1), (2, 2), (4, 1), (7, 1), (8, 1)}  # (state size n, observation size L)
 _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
-_NO_IMPLICIT_GRAD = (
-    "the NLL gradient of a Kvaerno3 (implicit) step is not ported yet: it needs the Kvaerno3 "
-    "counterpart of bwd_kernel (the next slice of the port); differentiating the plain version "
-    "or make_nll would differentiate the Newton loop instead of the stage-solve rule"
-)
+
+def no_grad_kernel(model_name: str, solver_name: str, n: int) -> str:
+    """Why ``nll_bwd`` has no instantiation for this chain."""
+    return (
+        f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the Kvaerno3 gradient "
+        "kernel is instantiated for Hodgkin-Huxley reduced-4 (n = 4) only; the n = 7 and n = 8 units "
+        "(reduced-1, full) are not built yet, and the route without a kernel (make_nll + autograd) "
+        "needs the second-order stage-solve rule, StageSolve.backward, which is not ported either"
+    )
 
 
 def detect_uniform(obs):
@@ -185,7 +191,9 @@ def supports(model, solver, ekf, obs, grad: bool = False) -> bool:
 def _qr_r_lists(a_rows, eps: float):
     """R factor of a thin QR for an [m][n] list-of-tensors matrix: the
     Householder sweep of ops/small_qr.py with max-abs scaling and the
-    zero-column guard."""
+    zero-column guard. Its values are those of the tile math; its
+    derivative differs from JAX's only at a column that is exactly zero,
+    where the tile math's is NaN (the XLA path skips that QR at gamma = 0)."""
     m, n = len(a_rows), len(a_rows[0])
     scale = torch.abs(a_rows[0][0])
     for i in range(m):
@@ -200,7 +208,13 @@ def _qr_r_lists(a_rows, eps: float):
         sigma_sq = col[0] * col[0]
         for c in col[1:]:
             sigma_sq = sigma_sq + c * c
-        sigma = torch.sqrt(sigma_sq)
+        # the square root's derivative is taken as 0 where sigma_sq is 0 (a
+        # column that is exactly zero, as float32 reaches when the covariance
+        # underflows at gamma = 0), not 0/0: the reflection is skipped there
+        # (`live` below), and its NaN would otherwise reach every entry
+        pos = sigma_sq > 0
+        sigma = torch.where(pos, torch.sqrt(torch.where(pos, sigma_sq, torch.ones_like(sigma_sq))),
+                            torch.sqrt(sigma_sq).detach())
         sign = torch.where(col[0] >= 0, 1.0, -1.0).to(col[0].dtype)
         alpha = -sign * sigma
         v = [col[0] + sigma * sign] + col[1:]
@@ -354,7 +368,18 @@ class ChainMath:
         are stacked [B, n, n] tensors here (``ops/small_inv.py``, batched
         products), so the plain version runs far fewer operations than an
         elementwise transliteration; the sums run in another order than the
-        kernel's."""
+        kernel's.
+
+        Under autograd the derivative with respect to the parameters follows
+        the stage solve's ``custom_jvp`` (pallas_ekf.py:301-332), not the
+        Newton loop: the iterations run on detached values (the guess z0 and
+        the base-point inverse carry no derivative, :314 and :345), and the
+        solution is re-attached as z* + M^-1 (G - G.detach()), with
+        G = known + h gamma f(t_i, z*, p) at z* held fixed and M^-1 the
+        detached (I - h gamma J(z*))^-1. That has the value z* and the first
+        derivative M^-1 dG, which is all reverse mode needs here: P's
+        tangents are explicit (``jac_sol @ (minv_sol @ dknown)``), so J(z*)
+        and its inverse are differentiated through the attached z."""
         n, h = self.n, self.h
         h_gamma = h * sdirk._GAMMA
         eye = torch.eye(n, dtype=x[0].dtype, device=x[0].device)
@@ -369,6 +394,7 @@ class ChainMath:
         xs = torch.stack(x, -1)
         p_cols = torch.stack([torch.stack(col, -1) for col in cols], -1)  # [B, n, n]: column c of P
         k0, jac0, minv0 = slope_and_inverse(t, xs)
+        minv0 = minv0.detach()
         ks, dks = [k0], [jac0 @ p_cols]
         for i in range(1, 4):
             t_i = t + sdirk._C[i] * h
@@ -378,10 +404,17 @@ class ChainMath:
                 if a != 0.0:
                     known = known + (h * a) * ks[j]
                     dknown = dknown + (h * a) * dks[j]
-            z = known + h_gamma * ks[i - 1]
-            for _ in range(self.solver.newton_iters):
-                r = z - known - h_gamma * f(t_i, z)
-                z = z - (minv0 @ r[..., None])[..., 0]
+            with torch.no_grad():
+                z = known + h_gamma * ks[i - 1]
+                for _ in range(self.solver.newton_iters):
+                    r = z - known - h_gamma * f(t_i, z)
+                    z = z - (minv0 @ r[..., None])[..., 0]
+            if torch.is_grad_enabled():
+                # the value z*, the first derivative (I - h g J(z*))^-1 dG
+                g_sol = known + h_gamma * f(t_i, z)
+                with torch.no_grad():
+                    minv_z = slope_and_inverse(t_i, z)[2]
+                z = z + (minv_z @ (g_sol - g_sol.detach())[..., None])[..., 0]
             k_sol, jac_sol, minv_sol = slope_and_inverse(t_i, z)
             ks.append(k_sol)
             dks.append(jac_sol @ (minv_sol @ dknown))
@@ -555,21 +588,24 @@ def nll_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt)
 
 
 def nll_grad_plain(cm: ChainMath, phys_t: torch.Tensor, ys: torch.Tensor, gamma_sqrt,
-                   g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   g: torch.Tensor, rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the gradient kernel: reverse-mode autograd through
-    :func:`nll_plain`. Returns ``(dphys [K, B], dgamma)``, the cotangent ``g``
-    [B] pulled back to the parameter rows and to ``gamma_sqrt``; ``dgamma``
-    has the shape of ``gamma_sqrt`` (a scalar sums over lanes, a [B] tensor
-    gives each lane's share). Raises for an implicit (Kvaerno3) step, whose
-    gradient must follow the stage-solve rule, not the Newton loop."""
-    if cm.implicit:
-        raise NotImplementedError(_NO_IMPLICIT_GRAD)
+    :func:`nll_plain` (for a Kvaerno3 step through the stage-solve rule).
+    Returns ``(dphys [K, B], dgamma)``, the cotangent ``g`` [B] pulled back to
+    the parameter rows and to ``gamma_sqrt``; ``dgamma`` has the shape of
+    ``gamma_sqrt`` (a scalar sums over lanes, a [B] tensor gives each lane's
+    share). ``rows`` are the parameter rows asked for (default: every row);
+    the others are zero, as the kernel leaves them."""
     with torch.enable_grad():
         phys = phys_t.detach().requires_grad_(True)
         gs = torch.as_tensor(gamma_sqrt, dtype=phys_t.dtype, device=phys_t.device)
         gs = gs.detach().clone().requires_grad_(True)
         nll = nll_plain(cm, phys, ys, gs)
         dphys, dgamma = torch.autograd.grad(nll, (phys, gs), grad_outputs=g.to(nll.dtype))
+    if rows is not None:
+        keep = torch.zeros(cm.k_params, dtype=torch.bool, device=dphys.device)
+        keep[list(rows)] = True
+        dphys = torch.where(keep[:, None], dphys, torch.zeros_like(dphys))
     return dphys, dgamma
 
 
@@ -601,7 +637,10 @@ def _check_device(t: torch.Tensor) -> None:
 class NllFwd:
     """``nll_b(p_norm_b [B, P_opt], gamma_sqrt) -> [B]`` through the forward
     NLL kernel, differentiable through the gradient kernel (:attr:`grad`):
-    launched on CUDA tensors, the plain versions on CPU tensors."""
+    launched on CUDA tensors, the plain versions on CPU tensors. Entered
+    from normalized parameters, the backward asks the gradient kernel for
+    the optimized rows only (``spec.opt_indices``): the other rows are
+    constants of ``p_norm_b``, so their cotangent cannot reach it."""
 
     name = "nll_fwd"
 
@@ -610,6 +649,7 @@ class NllFwd:
         self.spec = spec
         self.ys = ys[: cm.n_obs].to(cm.dtype).contiguous()
         self._rig = (ctypes.c_double * len(cm.rig_doubles()))(*cm.rig_doubles())
+        self.opt_rows = tuple(int(r) for r in spec.opt_indices.tolist())
         self.grad = NllGrad(self)
 
     def physical(self, p_norm_b: torch.Tensor) -> torch.Tensor:
@@ -618,7 +658,7 @@ class NllFwd:
 
     def __call__(self, p_norm_b: torch.Tensor, gamma_sqrt) -> torch.Tensor:
         gs = torch.as_tensor(gamma_sqrt, dtype=self.cm.dtype)
-        return NllKernelFunction.apply(self.physical(p_norm_b), gs, self)
+        return NllKernelFunction.apply(self.physical(p_norm_b), gs, self, self.opt_rows)
 
     def forward(self, phys_t: torch.Tensor, gamma_sqrt) -> torch.Tensor:
         """NLL [B] of the rows phys_t [K, B]: the kernel or its plain version."""
@@ -659,8 +699,12 @@ class NllFwd:
 class NllGrad:
     """``(dphys [K, B], dgamma)`` for the cotangent ``g`` [B] of the NLL of the
     rows phys_t [K, B], through the gradient kernel on CUDA tensors and
-    :func:`nll_grad_plain` on CPU tensors. ``dgamma`` is a scalar, or None
-    when ``with_dgamma`` is false (the kernel then skips that direction)."""
+    :func:`nll_grad_plain` on CPU tensors. ``rows`` lists the parameter rows
+    to differentiate (default: every row, as ``bwd_kernel`` gives them); the
+    rows not asked for are zero, and the kernel launches no thread for
+    them. ``dgamma`` is a scalar, or None when ``with_dgamma`` is false (the
+    kernel then skips that direction). Raises on either device for a chain
+    without a gradient instantiation."""
 
     name = "nll_bwd"
 
@@ -669,29 +713,39 @@ class NllGrad:
         self.ys = fwd.ys
         self._rig = fwd._rig
 
-    def __call__(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor,
-                 with_dgamma: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def __call__(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor, with_dgamma: bool = True,
+                 rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        self._check_instantiated()
         if phys_t.is_cuda:
-            dphys, dgamma = self.launch(phys_t, gamma_sqrt, g, with_dgamma)
+            dphys, dgamma = self.launch(phys_t, gamma_sqrt, g, with_dgamma, rows)
             return dphys, (dgamma.sum() if with_dgamma else None)
         _check_device(phys_t)
-        dphys, dgamma = nll_grad_plain(self.cm, phys_t, self.ys, gamma_sqrt, g)
+        dphys, dgamma = nll_grad_plain(self.cm, phys_t, self.ys, gamma_sqrt, g, rows)
         return dphys, (dgamma if with_dgamma else None)
 
-    def launch(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor,
-               with_dgamma: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """One kernel launch on the current stream: ``(dphys [K, B], each
-        lane's share of dgamma [B] or None)``. Raises for an implicit step
-        (no Kvaerno3 instantiation of the gradient kernel yet)."""
+    def _check_instantiated(self) -> None:
+        """Raises for a chain the gradient kernel has no instantiation for,
+        on either device (the CPU route stands in for the kernel only)."""
         cm = self.cm
-        if cm.implicit:
-            raise NotImplementedError(_NO_IMPLICIT_GRAD)
+        if "bwd" not in _KERNELS.get((cm.model_name, cm.solver.name), ()):
+            raise NotImplementedError(no_grad_kernel(cm.model_name, cm.solver.name, cm.n))
+
+    def launch(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor, with_dgamma: bool = True,
+               rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One kernel launch on the current stream: ``(dphys [K, B], each
+        lane's share of dgamma [B] or None)``, one thread per (lane,
+        direction). Raises for a chain without a gradient instantiation."""
+        cm = self.cm
+        self._check_instantiated()
         batch = _check_rows(cm, phys_t, self.ys)
         g = g.to(phys_t.dtype).contiguous()
         if g.shape != (batch,) or g.device != phys_t.device:
             raise ValueError(f"g must be a [{batch}] tensor on {phys_t.device}, got {tuple(g.shape)} on {g.device}")
+        rows = tuple(range(cm.k_params)) if rows is None else tuple(int(r) for r in rows)
+        if len(set(rows)) != len(rows) or any(not 0 <= r < cm.k_params for r in rows) or not (rows or with_dgamma):
+            raise ValueError(f"rows must be distinct parameter rows in [0, {cm.k_params}), got {rows}")
         lib = load_library()
-        dphys = torch.empty_like(phys_t)
+        dphys = (torch.empty_like if len(rows) == cm.k_params else torch.zeros_like)(phys_t)
         dgamma = torch.empty(batch, dtype=phys_t.dtype, device=phys_t.device) if with_dgamma else None
         with torch.cuda.device(phys_t.device):
             stream = torch.cuda.current_stream(phys_t.device).cuda_stream
@@ -708,6 +762,8 @@ class NllGrad:
                 self._rig,
                 float(gamma_sqrt),
                 g.data_ptr(),
+                (ctypes.c_int * max(len(rows), 1))(*rows),
+                len(rows),
                 dphys.data_ptr(),
                 None if dgamma is None else dgamma.data_ptr(),
                 stream,
@@ -721,21 +777,22 @@ class NllGrad:
 class NllKernelFunction(torch.autograd.Function):
     """NLL [B] of the rows phys_t [K, B] at the scalar ``gamma_sqrt``: the
     forward runs ``fwd`` (:class:`NllFwd`), the backward runs ``fwd.grad``
-    (:class:`NllGrad`) with the incoming cotangent."""
+    (:class:`NllGrad`) with the incoming cotangent, on the parameter
+    ``rows`` (None: every row; the others get a zero gradient)."""
 
     @staticmethod
-    def forward(ctx, phys_t, gamma_sqrt, fwd):
+    def forward(ctx, phys_t, gamma_sqrt, fwd, rows=None):
         ctx.save_for_backward(phys_t, gamma_sqrt)
-        ctx.fwd = fwd
+        ctx.fwd, ctx.rows = fwd, rows
         return fwd.forward(phys_t.contiguous(), gamma_sqrt)
 
     @staticmethod
     def backward(ctx, g):
         phys_t, gamma_sqrt = ctx.saved_tensors
-        dphys, dgamma = ctx.fwd.grad(phys_t.contiguous(), gamma_sqrt, g, ctx.needs_input_grad[1])
+        dphys, dgamma = ctx.fwd.grad(phys_t.contiguous(), gamma_sqrt, g, ctx.needs_input_grad[1], ctx.rows)
         if dgamma is not None:
             dgamma = dgamma.to(gamma_sqrt.device)
-        return dphys, dgamma, None
+        return dphys, dgamma, None, None
 
 
 def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt,

@@ -14,13 +14,18 @@ goes through the CUDA kernels of ``ops/nll_kernel.py`` (``nll_fwd``, and for
 else through the port's ``make_nll`` (with autograd for the gradient), which
 on the CPU runs about ten times slower than the plain versions (its
 linearization goes through ``torch.func.jvp``). ``parameter_sensitivity`` is
-not ported and raises; so does ``optimize`` with the Kvaerno3 solver (its
-gradient kernel is not ported yet). Results go to the ``output`` path: H5,
-or ``.npz`` for a path with that suffix.
+not ported and raises. ``optimize`` with the Kvaerno3 solver runs on the
+kernels' route only (Hodgkin-Huxley reduced-4, whose gradient kernel is
+instantiated) and raises elsewhere: ``make_nll`` + autograd would need the
+second-order stage-solve rule, which is not ported. Results go to the
+``output`` path: H5, or ``.npz`` for a path with that suffix.
 
 Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set output=out.npz]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/hodgkinhuxley1_r4 \\
+      --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_r4.npz [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
@@ -162,16 +167,20 @@ def optimize(cfg) -> dict:
             "optimizer_mode=device (the on-device L-BFGS, inference/lbfgs.py) is not ported yet; "
             "use optimizer_mode=host"
         )
-    if isinstance(cfg["solver_builder"], Kvaerno3):
-        # make_nll + autograd would differentiate the Newton loop, not the
-        # reference's stage-solve rule
-        raise NotImplementedError(
-            "optimize with the Kvaerno3 (implicit) solver needs the NLL gradient through the "
-            "stage-solve rule: the Kvaerno3 gradient kernel (the counterpart of bwd_kernel, "
-            "ode_uncertainty_tpu/ops/pallas_ekf.py:752-860) is the next slice of the port and is not "
-            "ported yet; evaluate runs on this configuration"
-        )
     rig = build_rig(cfg, dtype, device)
+    if isinstance(rig.solver, Kvaerno3) and (
+        cfg.get("initial_state_parametrized", False)
+        or not supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=True)
+    ):
+        # the route without a kernel would reach StageSolve.backward
+        raise NotImplementedError(
+            f"optimize with the Kvaerno3 (implicit) solver runs on the NLL kernels only, and the Kvaerno3 "
+            f"gradient kernel does not cover {rig.model.name} (n = {rig.model.state_size}) here: it is "
+            "instantiated for single-compartment Hodgkin-Huxley reduced-4 (n = 4) with "
+            "disable_cov_update=True, a uniform observation grid and initial_state_parametrized=false. "
+            "Missing: the n = 7 and n = 8 gradient units (reduced-1, full), and StageSolve.backward "
+            "(the second-order stage-solve rule) for make_nll + autograd; evaluate runs on this configuration"
+        )
     spec = rig.spec
     gammas = gammas_of(cfg, dtype)
     p0 = initial_restarts(cfg, spec, dtype)

@@ -14,7 +14,9 @@ at the solution z*, not the tangent of the Newton loop. Here it is a
 square-root EKF's linearization, ``ops/linearize.py``) applies it. Only the
 first order is ported: reverse mode through the rule (the gradient of a
 linearization, which the NLL gradient of an implicit step needs) raises
-``NotImplementedError``. ``remat_stage_inverse`` is the JAX package's
+``NotImplementedError``; the NLL gradient of an implicit step comes from the
+Kvaerno3 NLL-gradient kernel and its plain version (``ops/nll_kernel.py``),
+which apply the rule's derivative directly. ``remat_stage_inverse`` is the JAX package's
 TPU residual-memory knob; it is accepted and ignored.
 
 Tableau: Kvaerno (2004) ESDIRK 3(2), stiffly accurate.
@@ -100,7 +102,8 @@ class StageSolve(torch.autograd.Function):
     def backward(ctx, *grads):
         raise NotImplementedError(
             "reverse mode through the Kvaerno3 stage-solve rule (the gradient of an implicit "
-            "step's linearization) is not ported yet: it comes with the Kvaerno3 NLL-gradient kernel"
+            "step's linearization) is not ported yet: the NLL gradient of an implicit step goes "
+            "through the Kvaerno3 NLL-gradient kernel (ops/nll_kernel.py) and its plain version"
         )
 
 

@@ -135,6 +135,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_double),  # rig constants (host)
         ctypes.c_double,  # gamma_sqrt
         ctypes.c_void_p,  # g
+        ctypes.POINTER(ctypes.c_int),  # parameter rows to differentiate (host)
+        ctypes.c_int,  # number of rows
         ctypes.c_void_p,  # dphys
         ctypes.c_void_p,  # dgamma per lane, or NULL
         ctypes.c_void_p,  # stream

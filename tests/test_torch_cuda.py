@@ -1,4 +1,4 @@
-"""The nll_fwd and nll_bwd CUDA kernels (and nll_fwd's Kvaerno3
+"""The nll_fwd and nll_bwd CUDA kernels (and their Kvaerno3
 Hodgkin-Huxley instantiations) against their plain PyTorch versions, on the
 card.
 
@@ -13,7 +13,11 @@ version (the gradient rtol of tests/test_pallas_ekf.py). Kvaerno3 values
 (HH reduced-4 and full, 200 steps across the stimulus onset, on the
 committed observations): float64 rtol 1e-9; float32 lane-normalized
 |k - p| / (|p| + 1) <= 5e-4 against the float64 plain version (the implicit
-value tolerance of tests/test_pallas_ekf.py:314).
+value tolerance of tests/test_pallas_ekf.py:314). Kvaerno3 gradients (HH
+reduced-4, the same 200-step onset rig, g_Na varied): float64 rtol 1e-9
+against the float64 plain version (on the host's CPU); float32 lane-normalized
+|k - p| / (|p| + 1) <= 1e-2 (the implicit gradient tolerance of
+tests/test_pallas_ekf.py:319).
 """
 
 from pathlib import Path
@@ -178,5 +182,51 @@ def test_kvaerno3_kernel_matches_plain_version_on_the_card(dtype, experiment, da
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=0.0)
     else:
         assert (np.abs(got - want) / (np.abs(want) + 1.0)).max() <= 5e-4
-    with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        fn.grad.launch(fn.physical(p), 0.1, torch.ones(16, dtype=fn.cm.dtype, device="cuda"))
+    if experiment == "params/hodgkinhuxley7_full":  # no Kvaerno3 gradient unit for n = 8
+        with pytest.raises(NotImplementedError, match="Kvaerno3"):
+            fn.grad.launch(fn.physical(p), 0.1, torch.ones(16, dtype=fn.cm.dtype, device="cuda"))
+
+
+_PLAIN_GRAD: dict = {}
+
+
+def _hh_plain_grad(p, gammas, g):
+    """The float64 plain gradient [K + 1, B] of the reduced-4 onset rig on the
+    host's CPU (each lane's d/d gamma^1/2 in the last row), once."""
+    if "r4" not in _PLAIN_GRAD:
+        fn64 = _hh_kernel("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz", torch.float64)
+        dphys, dgamma = nll_kernel.nll_grad_plain(fn64.cm, fn64.physical(p).cpu(), fn64.ys.cpu(), gammas.cpu(),
+                                                  g.cpu().double())
+        _PLAIN_GRAD["r4"] = torch.cat([dphys, dgamma[None]]).numpy()
+    return _PLAIN_GRAD["r4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kvaerno3_grad_kernel_matches_plain_version_on_the_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the nll_bwd kernel has no CPU mode (chip_smoke.py runs it)")
+    fn = _hh_kernel("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz", getattr(torch, dtype))
+    rng = np.random.default_rng(5)
+    p = torch.as_tensor(rng.uniform(size=(16, 1)), device="cuda")
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=32), device="cuda")
+    gammas = torch.tensor([0.1] * 16 + [0.0] * 16, dtype=torch.float64)
+    want = _hh_plain_grad(torch.cat([p, p]), gammas, g)
+    before = nll_kernel.launches["nll_bwd"]
+    parts = [fn.grad.launch(fn.physical(p), gs, g[sl]) for gs, sl in ((0.1, slice(0, 16)), (0.0, slice(16, None)))]
+    torch.cuda.synchronize()
+    assert nll_kernel.launches["nll_bwd"] == before + 2
+    got = torch.cat([torch.cat([dp, dg[None]]) for dp, dg in parts], dim=1).double().cpu().numpy()
+    assert np.isfinite(got).all()
+    rel, lane = _grad_err(got, want)
+    if dtype == "float64":
+        assert rel <= 1e-9, rel
+    else:
+        assert lane <= 1e-2, lane
+    # a launch over the optimized row alone gives the same row, zeros elsewhere
+    rows = fn.opt_rows
+    part, none = fn.grad.launch(fn.physical(p), 0.1, g[:16], with_dgamma=False, rows=rows)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(part[list(rows)], parts[0][0][list(rows)])
+    others = [r for r in range(fn.cm.k_params) if r not in rows]
+    assert not part[others].any()

@@ -1,8 +1,11 @@
 """The port's ``evaluate`` on params/hodgkinhuxley1_r4 (Kvaerno3, the
 kernel's route: its plain version on the CPU) against the JAX CLI, the
 committed npz copies of the Hodgkin-Huxley observation files, and
-``optimize`` on a Kvaerno3 experiment, which raises until the Kvaerno3
-gradient kernel is ported.
+``optimize`` on Kvaerno3 experiments: it runs on the kernels' route for
+reduced-4 (its gradient kernel is instantiated) and raises, before any
+NLL is built, for the variants without a gradient unit (reduced-1, full)
+and for multi-compartment HH, never falling through to ``make_nll`` +
+autograd (which would need the second-order stage-solve rule).
 
 Both CLIs run float64 at a cut horizon (``tN=0.3``, 30 steps, before the
 stimulus starts at t = 10, so the two routes' time rules agree) on the
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 
 from ode_uncertainty_tpu_torch import run_parameter_estimation as rpe
+from ode_uncertainty_tpu_torch.ops import nll_kernel
 from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment
 
 REPO = Path(__file__).resolve().parent.parent
@@ -82,9 +86,52 @@ def test_hh_evaluate_reads_the_npz_copy(tmp_path):
     np.testing.assert_array_equal(res["nll_evals"], ref["nll_evals"])
 
 
-def test_optimize_on_kvaerno3_raises(tmp_path):
-    cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+def _no_make_nll(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("optimize on Kvaerno3 reached make_nll + autograd")
+
+    monkeypatch.setattr(rpe, "make_nll", refuse)
+
+
+def test_optimize_on_kvaerno3_raises(tmp_path, monkeypatch):
+    # HH full (n = 8) has no Kvaerno3 gradient unit
+    _no_make_nll(monkeypatch)
+    cfg = build_config(load_experiment("params/hodgkinhuxley7_full"),
                        {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
     with pytest.raises(NotImplementedError, match="Kvaerno3 gradient kernel"):
         rpe.optimize(cfg)
     assert not (tmp_path / "out.npz").exists()
+
+
+@pytest.mark.parametrize("experiment", ["params/hodgkinhuxley6_r1", "params/hodgkinhuxley2_c2_r4"])
+def test_optimize_on_kvaerno3_without_a_gradient_unit_raises(tmp_path, monkeypatch, experiment):
+    # reduced-1 (n = 7) and multi-compartment HH: no gradient unit either
+    _no_make_nll(monkeypatch)
+    cfg = build_config(load_experiment(experiment),
+                       {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
+    with pytest.raises(NotImplementedError, match="n = 7 and n = 8 gradient units.*StageSolve.backward"):
+        rpe.optimize(cfg)
+    assert not (tmp_path / "out.npz").exists()
+
+
+def test_optimize_on_kvaerno3_r4_takes_the_kernels_route(tmp_path, monkeypatch):
+    _no_make_nll(monkeypatch)
+    cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+                       {"device": "cpu", "tN": 0.05, "num_random_runs": 2, "num_tempering_stages": 2,
+                        "lbfgs_maxiter": 2, "y_path": str(DATA / "hodgkinhuxley_r4.npz"),
+                        "output": str(tmp_path / "out.npz")})
+    seen = []
+    grad = nll_kernel.NllGrad.__call__
+
+    def spy(self, phys_t, gamma_sqrt, g, with_dgamma=True, rows=None):
+        seen.append((self.cm.model_name, self.cm.solver.name, rows))
+        return grad(self, phys_t, gamma_sqrt, g, with_dgamma, rows)
+
+    monkeypatch.setattr(nll_kernel.NllGrad, "__call__", spy)
+    res = rpe.optimize(cfg)
+    assert res["route"] == "nll_fwd + nll_bwd kernels"
+    assert res["params_optims"].shape == (2, 2, 1) and np.isfinite(res["nll_optims"]).all()
+    # every gradient went through the Kvaerno3 gradient wrapper, for the
+    # optimized row alone (the parameter rows follow the sorted names)
+    row = sorted(cfg["ode_builder"].params).index("g_Na")
+    assert seen and set(seen) == {("hodgkin_huxley_reduced-4", "kvaerno3", (row,))}

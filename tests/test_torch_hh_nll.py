@@ -136,25 +136,32 @@ def test_plain_version_matches_jax_tiles_across_the_onset(dtype, gamma_sqrt):
 
 
 def test_kernel_wrapper_runs_the_plain_version_on_cpu_and_has_no_gradient():
+    # reduced-4 has both kernels: on CPU tensors the wrapper runs their
+    # plain versions, and only a CUDA launch counts
     _, trig = hh_rigs("reduced-4", "float64", 9.98, 4)
     assert nll_kernel.supports(trig.model, trig.solver, trig.ekf, trig.obs)
-    assert not nll_kernel.supports(trig.model, trig.solver, trig.ekf, trig.obs, grad=True)
+    assert nll_kernel.supports(trig.model, trig.solver, trig.ekf, trig.obs, grad=True)
     fn = nll_kernel.make_nll_cuda(*port_args(trig), trig.q_sqrt)
     p = torch.as_tensor(points(3, seed=2))
+    g = torch.ones(3, dtype=torch.float64)
     before = dict(nll_kernel.launches)
     got = fn(p, 0.1)
+    dphys, dgamma = fn.grad(fn.physical(p), 0.1, g)
     assert nll_kernel.launches == before  # only a CUDA launch counts
     assert torch.equal(got, nll_kernel.nll_plain(fn.cm, fn.physical(p), fn.ys, 0.1))
+    want = nll_kernel.nll_grad_plain(fn.cm, fn.physical(p), fn.ys, 0.1, g)
+    assert torch.equal(dphys, want[0]) and torch.equal(dgamma, want[1])
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn.launch(fn.physical(p), 0.1)
-    # no Kvaerno3 gradient kernel yet: neither its plain version nor autograd
-    # through the forward may stand in for it
+    # HH full has no Kvaerno3 gradient unit: the wrapper raises on either
+    # device, and autograd through the forward may not stand in for it
+    _, full = hh_rigs("full", "float64", 9.98, 4)
+    assert not nll_kernel.supports(full.model, full.solver, full.ekf, full.obs, grad=True)
+    fn_full = nll_kernel.make_nll_cuda(*port_args(full), full.q_sqrt)
     with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        fn.grad(fn.physical(p), 0.1, torch.ones(3, dtype=torch.float64))
+        fn_full.grad(fn_full.physical(p), 0.1, g)
     with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        fn(p.clone().requires_grad_(True), 0.1).sum().backward()
-    with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        nll_kernel.nll_grad_plain(fn.cm, fn.physical(p), fn.ys, 0.1, torch.ones(3, dtype=torch.float64))
+        fn_full(p.clone().requires_grad_(True), 0.1).sum().backward()
 
 
 def test_supports_rules_for_the_implicit_step():
