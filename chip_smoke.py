@@ -70,10 +70,11 @@ Phases, each printing one JSON line with its own wall seconds:
                   counts set to 0 just before: 4 launches, shape, finiteness,
                   8 grid points against the float64 kernel, the last stage's
                   argmin in g_Na within 10% of 25.0.
- 12. hh_timing    the Kvaerno3 nll_fwd at evaluate's shape (f32, f64) and at
-                  bench.py's hh_full shape (B = 512, n = 8, 10^4 steps, f32),
-                  median of 7, beside the operation bound and the plain
-                  version at a cut horizon of 20 steps.
+ 12. hh_timing    the Kvaerno3 nll_fwd at evaluate's shape (f32, f64), at
+                  optimize's widest dispatch (B = 256, f32) and at bench.py's
+                  hh_full shape (B = 512, n = 8, 10^4 steps, f32), median of
+                  7, beside the operation bound and the plain version at a
+                  cut horizon of 20 steps.
  13. hh_grad_parity  the Kvaerno3 nll_bwd (float64 and float32) against its
                   float64 plain version (on the host's CPU) on the 200-step
                   reduced-4 onset (t0 = 9.9) and spike (t0 = 23.5) rigs, 64
@@ -97,11 +98,14 @@ Phases, each printing one JSON line with its own wall seconds:
                   kernels launched, >= 95% of restarts finite, the best final
                   NLL at most the generating parameters' (gamma = 0, same
                   kernel) plus 1e-3 relative, the best g_Na within 10% of
-                  25.0; wall time, dispatches per stage, the widest dispatch.
+                  25.0; wall time, dispatches per stage, the widest dispatch,
+                  and the device time of every kernel launch (CUDA events
+                  around each): the kernels' share of the wall time.
  16. hh_grad_timing  one Kvaerno3 nll_bwd launch at hh_optimize's widest
                   dispatch, median of 7: float32 on the optimized row, with
-                  d/d gamma^1/2, and in float64; beside the bound and the
-                  plain gradient at a cut horizon of 20 steps.
+                  d/d gamma^1/2, and in float64 without and with it; beside
+                  the bound and the plain gradient at a cut horizon of 20
+                  steps.
  17. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
                   Kvaerno3 step), the nvidia-smi line, then the device line.
@@ -190,11 +194,16 @@ def ptxas_report(log: str) -> list:
     nvcc's -Xptxas=-v output."""
     out = []
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '.*?(nll_(?:fwd|bwd))_kernelI([fd])Li(\d+)ELi(\d+)E(.*)'", line)
+        entry = re.search(r"Compiling entry function '.*?(nll_(?:fwd|bwd))(_team)?_kernelI([fd])(.*)'", line)
         if entry:
-            kernel, real, n, obs = entry.group(1, 2, 3, 4)
-            model = "hodgkin_huxley" if "HodgkinHuxley" in entry.group(5) else "lotka_volterra"
+            kernel, team, real, rest = entry.group(1, 2, 3, 4)
+            if team:  # nll_*_team_kernel<real, HodgkinHuxley<n>>: L = 1
+                n, obs = re.search(r"HodgkinHuxleyILi(\d+)E", rest).group(1), 1
+            else:
+                n, obs = re.match(r"Li(\d+)ELi(\d+)E", rest).group(1, 2)
+            model = "hodgkin_huxley" if "HodgkinHuxley" in rest else "lotka_volterra"
             out.append({"kernel": kernel, "model": model, "n": int(n), "L": int(obs),
+                        "design": "team per lane" if team else "thread per lane",
                         "dtype": "float32" if real == "f" else "float64"})
         elif out and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[-1].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
@@ -326,6 +335,43 @@ def event_times(fn, reps: int) -> list:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+class LaunchTimer:
+    """CUDA events around every launch of the two kernel wrappers while it is
+    entered: their device time by kernel, the launch counts untouched. The
+    device time of a run's other operations (small tensor operations of
+    the optimizer's bookkeeping) is not counted, so one minus the kernels'
+    share of the wall time bounds the device's idle share from above."""
+
+    def __enter__(self):
+        self.events = []
+        self.saved = (nll_kernel.NllFwd.launch, nll_kernel.NllGrad.launch)
+
+        def timed(launch, name):
+            def run(wrapper, *args, **kwargs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = launch(wrapper, *args, **kwargs)
+                end.record()
+                self.events.append((name, start, end))
+                return out
+            return run
+
+        nll_kernel.NllFwd.launch = timed(self.saved[0], "nll_fwd")
+        nll_kernel.NllGrad.launch = timed(self.saved[1], "nll_bwd")
+        return self
+
+    def __exit__(self, *exc):
+        nll_kernel.NllFwd.launch, nll_kernel.NllGrad.launch = self.saved
+        return False
+
+    def seconds(self) -> dict:
+        torch.cuda.synchronize()
+        out = {"nll_fwd": 0.0, "nll_bwd": 0.0}
+        for name, start, end in self.events:
+            out[name] += start.elapsed_time(end) / 1e3
+        return out
 
 
 def synthesize_observations(path: Path) -> dict:
@@ -874,6 +920,11 @@ def main() -> int:
             kern.launch(phys, hh_gs0)
             torch.cuda.synchronize()
             timings[f"evaluate_{label}_event_ms"] = event_times(lambda: kern.launch(phys, hh_gs0), 7)
+        # optimize's widest dispatch: B = 256 lanes
+        p256 = torch.rand((256, 1), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                          dtype=torch.float32, device=DEVICE)
+        phys256 = k32.physical(p256)
+        timings["b256_f32_event_ms"] = event_times(lambda: k32.launch(phys256, hh_gs0), 7)
         phys32 = k32.physical(grid.float())
         _, hh_plain_ms = sync_time(lambda: nll_kernel.nll_plain(cut(k32.cm, HH_PLAIN_TIMING_STEPS), phys32, k32.ys,
                                                                 hh_gs0))
@@ -894,6 +945,7 @@ def main() -> int:
         ph.info.update(
             evaluate_shape=f"B={grid.shape[0]}, n={k32.cm.n}, L=1, d=1, n_obs={k32.cm.n_obs}, gamma^1/2={hh_gs0:.6g}",
             evaluate_f32_ms=hh_ms, evaluate_f64_ms=float(np.median(timings["evaluate_f64_event_ms"])),
+            b256_f32_ms=float(np.median(timings["b256_f32_event_ms"])),
             evaluate_filter_steps_per_s=grid.shape[0] * k32.cm.n_obs / (hh_ms / 1e3),
             evaluate_bound_ms=hh_b_ms, evaluate_bound_by=hh_b_by, evaluate_ops=hh_ops,
             evaluate_plain_ms=hh_plain_ms, plain_steps=HH_PLAIN_TIMING_STEPS,
@@ -901,8 +953,8 @@ def main() -> int:
             hh_full_ms=medb, hh_full_filter_steps_per_s=512 * kb.cm.n_obs / (medb / 1e3),
             hh_full_bound_ms=b_ms_b, hh_full_bound_by=b_by_b, hh_full_ops=ops_b, hh_full_plain_ms=plain_b_ms,
             hh_full_finite_lanes=int(torch.isfinite(outb).sum()), library_call="none", **timings)
-        hh_line = {"name": "nll_fwd (Kvaerno3 step)", "route": "cuda",
-                   "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cu",
+        hh_line = {"name": "nll_fwd (Kvaerno3 step, a team of threads per lane)", "route": "cuda",
+                   "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cuh",
                    "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:722 (Kvaerno3 step, :291-364)",
                    "launches": hh_counts["nll_fwd"],
                    "max_abs_err": onset_r4["kernel_f32_vs_plain_f64"]["max_abs_err"],
@@ -975,9 +1027,11 @@ def main() -> int:
         hh_opt_cfg["lbfgs_maxiter"] = HH_LBFGS_MAXITER
         nll_kernel.reset_launches()
         t0 = time.perf_counter()
-        res = optimize(hh_opt_cfg)
+        with LaunchTimer() as timer:
+            res = optimize(hh_opt_cfg)
         wall = time.perf_counter() - t0
         hh_opt_counts = dict(nll_kernel.launches)
+        kernel_s = timer.seconds()
         final = np.asarray(res["nll_optims"][:, -1], np.float64)
         if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 1):
             raise AssertionError(f"HH optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
@@ -998,6 +1052,8 @@ def main() -> int:
                        steps=k64.cm.n_obs, lbfgs_maxiter=HH_LBFGS_MAXITER, finite_final=int(finite.sum()),
                        best_final_nll=float(final[best]), nll_at_generating_params=truth, best_g_na=g_na_best,
                        generating_g_na=HH_GNA_TRUE, units=res["units"],
+                       kernel_seconds=kernel_s, kernel_share=sum(kernel_s.values()) / wall,
+                       device_idle_share_at_most=1.0 - sum(kernel_s.values()) / wall,
                        dispatches_per_stage=[u["dispatches"] for u in res["units"]],
                        iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
                        output=str(hh_opt_path.relative_to(ROOT)))
@@ -1016,11 +1072,12 @@ def main() -> int:
         ms_dgamma = event_times(lambda: k32.grad.launch(phys32, hh_gs0, g32, True, k32.opt_rows), 7)
         phys64, g64 = k64.physical(p.double()), g32.double()
         ms64 = event_times(lambda: k64.grad.launch(phys64, hh_gs0, g64, False, k64.opt_rows), 7)
+        ms64_dgamma = event_times(lambda: k64.grad.launch(phys64, hh_gs0, g64, True, k64.opt_rows), 7)
         _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(k32.cm, HH_PLAIN_TIMING_STEPS), phys32,
                                                                    k32.ys, hh_gs0, g32, k32.opt_rows))
         b_ms, b_by, ops = bound_ms(k32.cm, hh_widest, grad=True)
-        hh_bwd_line = {"name": "nll_bwd (Kvaerno3 step)", "route": "cuda",
-                       "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cuh",
+        hh_bwd_line = {"name": "nll_bwd (Kvaerno3 step, a team of threads per lane and direction)",
+                       "route": "cuda", "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cuh",
                        "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:851 (Kvaerno3 step, stage-solve rule :301-332)",
                        "launches": hh_opt_counts["nll_bwd"],
                        "max_abs_err": onset["kernel_f32_vs_plain_f64"]["max_abs_err"],
@@ -1029,8 +1086,9 @@ def main() -> int:
         ph.info.update(shape=f"B={hh_widest}, 1 direction (g_Na), n={k32.cm.n}, L=1, d=1, n_obs={k32.cm.n_obs}, "
                              f"float32, gamma^1/2={hh_gs0:.6g}",
                        event_ms=ms, ops=ops, library_call="none", event_ms_with_dgamma=ms_dgamma,
-                       event_ms_float64=ms64, median_ms=float(np.median(ms)),
-                       median_ms_with_dgamma=float(np.median(ms_dgamma)), median_ms_float64=float(np.median(ms64)))
+                       event_ms_float64=ms64, event_ms_float64_with_dgamma=ms64_dgamma, median_ms=float(np.median(ms)),
+                       median_ms_with_dgamma=float(np.median(ms_dgamma)), median_ms_float64=float(np.median(ms64)),
+                       median_ms_float64_with_dgamma=float(np.median(ms64_dgamma)))
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

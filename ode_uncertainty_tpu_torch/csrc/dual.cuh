@@ -3,9 +3,10 @@
 // the value; |v| has the tangent sign(v) dv with sign(0) = 0, as in PyTorch
 // and JAX. Instantiating the chain on Dual<S> gives the NLL and its exact
 // derivative along the seeded direction (nll_bwd.cuh). For the
-// Hodgkin-Huxley rate laws it also has exp_t and expm1_t, the operations of
-// a jet of duals (Jet<Dual<S>, N>, the Jacobian with its derivative) with
-// constants of type S, and the Kvaerno3 stage solution's tangent.
+// Hodgkin-Huxley rate laws it also has exp_t and expm1_t and the operations
+// of a jet of duals (Jet<Dual<S>, 1>, a Jacobian column with its
+// derivative) with constants of type S; team_chain.cuh gives the Kvaerno3
+// stage solution's tangent.
 
 #pragma once
 
@@ -80,6 +81,22 @@ template <typename S>
 __device__ __forceinline__ Dual<S> operator/(S a, Dual<S> b) {
   const S q = a / b.v;
   return {q, -(q * b.d) / b.v};
+}
+// Quotients by the branch-free div_t of ekf_chain.cuh (the Hodgkin-Huxley
+// chain's), with operator/'s tangent rules.
+template <typename S>
+__device__ __forceinline__ Dual<S> div_t(Dual<S> a, Dual<S> b) {
+  const S q = div_t(a.v, b.v);
+  return {q, div_t(a.d - q * b.d, b.v)};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> div_t(Dual<S> a, S b) {
+  return {div_t(a.v, b), div_t(a.d, b)};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> div_t(S a, Dual<S> b) {
+  const S q = div_t(a, b.v);
+  return {q, div_t(-(q * b.d), b.v)};
 }
 template <typename S>
 __device__ __forceinline__ Dual<S> exp_t(Dual<S> a) {
@@ -178,52 +195,6 @@ __device__ __forceinline__ Jet<Dual<S>, M> operator*(S a, const Jet<Dual<S>, M>&
   for (int k = 0; k < M; ++k) r.d[k] = a * b.d[k];
   return r;
 }
-template <typename S, int M>
-__device__ __forceinline__ Jet<Dual<S>, M> operator/(const Jet<Dual<S>, M>& a, S b) {
-  Jet<Dual<S>, M> r;
-  r.v = a.v / b;
-#pragma unroll
-  for (int k = 0; k < M; ++k) r.d[k] = a.d[k] / b;
-  return r;
-}
-template <typename S, int M>
-__device__ __forceinline__ Jet<Dual<S>, M> operator/(S a, const Jet<Dual<S>, M>& b) {
-  Jet<Dual<S>, M> r;
-  r.v = a / b.v;
-#pragma unroll
-  for (int k = 0; k < M; ++k) r.d[k] = -(r.v * b.d[k]) / b.v;
-  return r;
-}
-
-// The tangent of a Kvaerno3 stage solution z* by the stage solve's
-// implicit-function rule (pallas_ekf.py:312-332): dz = M^-1 dG with
-// M = I - h g J(z*) and G = known + h g f(t_s, z*, p) at z* held fixed, so
-// dG = d(known) + h g (df/dp) dp, the RHS evaluated on duals with z's
-// tangent zero. M^-1 is taken on the values; the Newton loop that found
-// z* carries no tangent.
-template <typename S>
-struct StageSolution<Dual<S>> {
-  template <class Model, int N>
-  __device__ __forceinline__ static void attach(const typename Model::template Params<Dual<S>>& p,
-                                                const typename Model::template Params<S>& pv, S ts,
-                                                S hg, const Dual<S> (&known)[N], const S (&z)[N],
-                                                Dual<S> (&out)[N]) {
-    S f[N], jac[N][N], minv[N][N];
-    rhs_jacobian<Model, S>(pv, ts, z, f, jac);
-    newton_inverse<S, N>(jac, hg, minv);
-    Dual<S> zd[N], fd[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) zd[i] = Dual<S>(z[i]);
-    Model::rhs(p, ts, zd, fd);
-    S dg[N], dz[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) dg[i] = known[i].d + hg * fd[i].d;
-    matvec<S, N>(minv, dg, dz);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = Dual<S>(z[i], dz[i]);
-  }
-};
-
 // Parameters as duals, with tangent 1 on the one that row `dir` holds.
 template <typename S>
 __device__ __forceinline__ LotkaVolterra::Params<Dual<S>> seed(const LotkaVolterra::Params<S>& p,

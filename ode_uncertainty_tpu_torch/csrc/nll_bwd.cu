@@ -30,19 +30,25 @@
 // (ceil(B / 32), directions asked for); every thread recomputes the primal,
 // which costs nothing in wall time while the launch fills less than the card.
 //
-// The Kvaerno3 step on duals (ekf_chain.cuh `kvaerno3_stages`, dual.cuh
-// `StageSolution`): the simplified-Newton iterations run on the values only
-// (the reference's base-point inverse is a stop_gradient and the guess's
-// tangent is dropped); the stage solution's tangent is set by the
+// The Kvaerno3 step on duals (team_chain.cuh `team_predict`,
+// `TeamStageSolution`): the simplified-Newton iterations run on the values
+// only (the reference's base-point inverse is a stop_gradient and the
+// guess's tangent is dropped); the stage solution's tangent is set by the
 // implicit-function rule, (I - h g J(z*))^-1 (d known + h g df/dp dp), and
-// the Jacobian at z* is a jet of duals, so J(z*), its inverse and the stage
-// tangents of P's columns carry their derivative: the rule differentiated,
-// as JAX differentiates it in the TPU kernel's reverse sweep, never the
-// unrolled iterations. Per direction and step that is the forward's work on
-// duals (a jet of duals for each of the four Jacobians, dual Gauss-Jordan
-// inverses) plus, per implicit stage, one value Jacobian and inverse and one
-// dual RHS; the Newton iterations stay on values. Hodgkin-Huxley reduced-4
-// only (n = 4, one unit per type, nll_bwd_hh4_{f32,f64}.cu).
+// the Jacobian at z* is a jet of duals, so J(z*), the solves with
+// I - h g J(z*) and the stage tangents of P's columns carry their
+// derivative: the rule differentiated, as JAX differentiates it in the TPU
+// kernel's reverse sweep, never the unrolled iterations. Like the forward,
+// the Kvaerno3 gradient is bound by the latency of one (lane, direction)'s
+// chain of 10^4 steps; one thread per pair carried the forward's
+// per-thread work on duals, a jet of duals of 10 values an entry, and
+// spilled. Here a team of team_size(n) threads runs each (lane, direction)
+// as the forward's team does (team_chain.cuh): thread c's Jacobian column
+// is a jet of duals with one tangent (4 values an entry), the solves,
+// QRs and products are shared by the team, and divisions run without the
+// slow-path branch. Per implicit stage the rule adds one value Jacobian
+// column, one dual RHS and one team solve. Hodgkin-Huxley reduced-4 only
+// (n = 4, one unit per type, nll_bwd_hh4_{f32,f64}.cu).
 //
 // Tangent rules: a comparison or a select (the QR's max-abs scale and its
 // `scale > 0` guard, the sign, the zero-column guard `vnorm_sq > eps`) acts

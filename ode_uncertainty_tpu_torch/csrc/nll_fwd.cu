@@ -44,18 +44,27 @@
 // ~2.4 ns at the peak rate.
 //
 // The Kvaerno3 step (Hodgkin-Huxley, n = 4, 7, 8, L = 1, 10^4 steps). Per
-// step: the Jacobian at the base point by one evaluation of the RHS on an
-// n-tangent jet, a Gauss-Jordan inverse of I - h g J, then three implicit
-// stages of `newton_iters` (6) simplified-Newton iterations, each stage
-// ending with the Jacobian and the inverse at its solution and the tangents
-// of P's columns through the implicit-function rule (ekf_chain.cuh,
-// `kvaerno3_stages`). The same one-thread-per-lane layout: every matrix of
-// the step is in registers (spilling to local memory at n = 8, where a
-// thread holds ~700 values), the Newton loop is not unrolled. The
-// evaluate batch is 100 lanes (4 warps), so the time is again one lane's
-// dependent chain: ~4 Jacobians, 4 inverses and 18 RHS evaluations a step,
-// with exp/expm1 in every rate law; chip_smoke.py reports the operations the
-// plain version counts and the bound they give.
+// step: the Jacobian at the base point, the inverse of I - h g J for the
+// Newton iterations, then three implicit stages of `newton_iters` (6)
+// simplified-Newton iterations, each stage ending with the Jacobian at its
+// solution and the tangents of P's columns through the implicit-function
+// rule. What bounds it is latency, not bytes or operations: the evaluate
+// batch is 100 lanes, and a launch takes as long as one lane's chain of
+// 10^4 dependent steps (the same at B = 1 and B = 256). With one thread per
+// lane that chain took ~49,000 cycles a step on an H100 SXM: four Jacobians on
+// an n-tangent jet, four n x n inverses, n^2 stage tangents and the QRs in
+// one thread, registers spilling at n = 7 and 8, and an IEEE division
+// after every rate law whose slow-path branch kept the scheduler from
+// overlapping independent work. Here a team of team_size(n) threads runs
+// each lane (team_chain.cuh): thread c owns column c of P, evaluates column
+// c of each Jacobian on a one-tangent jet, and the team shares the solves
+// with I - h g J (Gauss-Jordan over its columns, pivot columns broadcast by
+// shuffles), the QRs (shuffle-xor sums over the team) and the full-matrix
+// products (a per-team slab of shared memory); divisions run without the
+// slow-path branch (div_t, ekf_chain.cuh). The Newton iterations stay one
+// chain of RHS evaluations that every thread of the team runs, and are
+// now the larger part of a step. One warp a block, so the lanes of a
+// dispatch spread over the SMs, one warp each.
 
 #include "nll_fwd.cuh"
 

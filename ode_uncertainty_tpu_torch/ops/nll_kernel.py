@@ -5,7 +5,8 @@ Port of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The TPU kernel
 ``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` and ``bwd_kernel`` becomes
 ``csrc/nll_bwd.cu`` (one thread per lane, or per lane and parameter
 direction; the Kvaerno3 instantiations in ``csrc/nll_fwd_hh*.cu`` and
-``csrc/nll_bwd_hh*.cu``; built by ``utils/cuda_build.py``). The tile math they run
+``csrc/nll_bwd_hh*.cu`` run a team of threads per lane, ``csrc/team_chain.cuh``;
+built by ``utils/cuda_build.py``). The tile math they run
 (``_build_chain_math`` and ``make_nll_tiles``) becomes :class:`ChainMath` and
 :func:`nll_plain`, which evaluate the same arithmetic on lists of ``[B]``
 tensors; :func:`nll_grad_plain` differentiates it with autograd. The tests

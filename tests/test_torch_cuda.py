@@ -17,7 +17,9 @@ value tolerance of tests/test_pallas_ekf.py:314). Kvaerno3 gradients (HH
 reduced-4, the same 200-step onset rig, g_Na varied): float64 rtol 1e-9
 against the float64 plain version (on the host's CPU); float32 lane-normalized
 |k - p| / (|p| + 1) <= 1e-2 (the implicit gradient tolerance of
-tests/test_pallas_ekf.py:319).
+tests/test_pallas_ekf.py:319). The Kvaerno3 kernels run a team of threads
+per lane, several teams to a warp; batches of 1, 3, 33 and 257 lanes leave
+the last warp part empty, with the same limits (a 40-step onset rig).
 """
 
 from pathlib import Path
@@ -138,8 +140,9 @@ def _hh_kernel(experiment, data, dtype, t0=9.9, steps=200):
     x0 = model.build_initial_value(torch.tensor([[-70.0]], dtype=torch.float64), model.params)
     obs_file = np.load(DATA / data)
     rows = slice(int(round(t0 / solver.h)) + 1, int(round(t0 / solver.h)) + steps + 1)
+    # the committed trace of the full model serves the reduced-1 one (n = 7) too
     obs = make_obs_model(np.asarray(parse_literal(cfg["measurement_matrix"]), float), obs_file["t"][rows],
-                         obs_file["x"][rows].reshape(steps, -1), cfg["obs_noise_var"], t0, solver.h, steps,
+                         obs_file["x"][rows].reshape(steps, -1)[:, :n], cfg["obs_noise_var"], t0, solver.h, steps,
                          dtype=dtype, device="cuda")
     spec = make_param_spec(model.params, cfg["params_range"], {k: k == "g_Na" for k in model.params},
                            dtype=dtype, device="cuda")
@@ -230,3 +233,69 @@ def test_kvaerno3_grad_kernel_matches_plain_version_on_the_card(dtype):
     assert none is None and torch.equal(part[list(rows)], parts[0][0][list(rows)])
     others = [r for r in range(fn.cm.k_params) if r not in rows]
     assert not part[others].any()
+
+
+_RAGGED = (1, 3, 33, 257)  # lanes: none of them fills the last warp of teams
+_RAGGED_STEPS = 40
+_RAGGED_PLAIN: dict = {}
+
+
+def _ragged_plain(experiment, data, p, grad):
+    """The float64 plain version (or gradient, every row and each lane's
+    d/d gamma^1/2, cotangent 1) of a 40-step onset rig at gamma^1/2 = 0.1
+    on the host's CPU, once per rig."""
+    key = (experiment, grad)
+    if key not in _RAGGED_PLAIN:
+        fn64 = _hh_kernel(experiment, data, torch.float64, steps=_RAGGED_STEPS)
+        phys, ys = fn64.physical(p).cpu(), fn64.ys.cpu()
+        if grad:
+            ones = torch.ones(p.shape[0], dtype=torch.float64)
+            dphys, dgamma = nll_kernel.nll_grad_plain(fn64.cm, phys, ys, torch.full_like(ones, 0.1), ones)
+            _RAGGED_PLAIN[key] = torch.cat([dphys, dgamma[None]]).numpy()
+        else:
+            _RAGGED_PLAIN[key] = nll_kernel.nll_plain(fn64.cm, phys, ys, 0.1).numpy()
+    return _RAGGED_PLAIN[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("experiment,data", [("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"),
+                                             ("params/hodgkinhuxley6_r1", "hodgkinhuxley_full.npz"),
+                                             ("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz")])
+def test_kvaerno3_team_kernel_on_ragged_batches(dtype, experiment, data):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the nll_fwd kernel has no CPU mode (chip_smoke.py runs it)")
+    fn = _hh_kernel(experiment, data, getattr(torch, dtype), steps=_RAGGED_STEPS)
+    p = torch.as_tensor(np.random.default_rng(6).uniform(size=(max(_RAGGED), fn.spec.num_opt)), device="cuda")
+    want = _ragged_plain(experiment, data, p, grad=False)
+    for batch in _RAGGED:
+        got = fn(p[:batch], 0.1)
+        torch.cuda.synchronize()
+        got = got.double().cpu().numpy()
+        assert got.shape == (batch,) and np.isfinite(got).all()
+        if dtype == "float64":
+            np.testing.assert_allclose(got, want[:batch], rtol=1e-9, atol=0.0)
+        else:
+            assert (np.abs(got - want[:batch]) / (np.abs(want[:batch]) + 1.0)).max() <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kvaerno3_team_grad_kernel_on_ragged_batches(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the nll_bwd kernel has no CPU mode (chip_smoke.py runs it)")
+    experiment, data = "params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"
+    fn = _hh_kernel(experiment, data, getattr(torch, dtype), steps=_RAGGED_STEPS)
+    p = torch.as_tensor(np.random.default_rng(7).uniform(size=(max(_RAGGED), 1)), device="cuda")
+    want = _ragged_plain(experiment, data, p, grad=True)
+    for batch in _RAGGED:
+        ones = torch.ones(batch, dtype=fn.cm.dtype, device="cuda")
+        dphys, dgamma = fn.grad.launch(fn.physical(p[:batch]), 0.1, ones)
+        torch.cuda.synchronize()
+        got = torch.cat([dphys, dgamma[None]]).double().cpu().numpy()
+        assert got.shape == (fn.cm.k_params + 1, batch) and np.isfinite(got).all()
+        rel, lane = _grad_err(got, want[:, :batch])
+        if dtype == "float64":
+            assert rel <= 1e-9, (batch, rel)
+        else:
+            assert lane <= 1e-2, (batch, lane)
