@@ -41,12 +41,16 @@ Phases, each printing one JSON line with its own wall seconds:
                   parameters (gamma = 0, same kernel) plus 1e-3 relative, and
                   that the best optimum is within 10% of the generating alpha
                   and beta. Prints each stage's wall time, dispatches and the
-                  lanes still active at the iteration limit.
+                  lanes still active at the iteration limit, and the device
+                  time of every kernel launch (CUDA events around each): the
+                  kernels' share of the wall time.
   7. timing       one nll_fwd launch of evaluate's shape and one nll_bwd launch
                   at optimize's widest dispatch on its optimized rows, each the
                   median of 7 CUDA-event timings, beside its bound and its plain
-                  version's time at a cut horizon of 200 steps; the nll_bwd
-                  launch also over every row, with d/d gamma^1/2 and in float64.
+                  version's time at a cut horizon of 200 steps; each also at
+                  B = 1 (one lane, the width of optimize's stragglers); the
+                  nll_bwd launch also over every row, with d/d gamma^1/2 and in
+                  float64.
   8. throughput   bench.py's `lv` workload: B = 8192, 2000 steps, H = I,
                   an observation every 10 steps, float32, gamma = 0.01; median
                   of CUDA-event-timed launches; the plain version once at
@@ -111,7 +115,8 @@ Phases, each printing one JSON line with its own wall seconds:
                   Kvaerno3 step), the nvidia-smi line, then the device line.
 
 The build phase reports each instantiation's registers, spills and ptxas
-time. Files too long for the output (the ptxas report, the synthesized
+time. Every phase line after the first names the card and its power limit
+(`card`). Files too long for the output (the ptxas report, the synthesized
 observations, the results) go to chiprun_out/. Any failed check raises, and
 the script exits non-zero without printing the last line.
 """
@@ -185,6 +190,9 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
+CARD = None  # nvidia-smi's name and power limit, set by the device phase
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -227,7 +235,8 @@ class Phase:
 
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:
-            emit({"phase": self.name, "seconds": time.perf_counter() - self.t0, **self.info})
+            card = {} if CARD is None else {"card": CARD}
+            emit({"phase": self.name, "seconds": time.perf_counter() - self.t0, **card, **self.info})
         return False
 
 
@@ -655,6 +664,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    global CARD
     t_start = time.perf_counter()
     OUT.mkdir(exist_ok=True)
 
@@ -663,6 +673,7 @@ def main() -> int:
                              capture_output=True, text=True, check=True).stdout.strip()
         ph.info.update(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                        device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    CARD = smi
 
     with Phase("build") as ph:
         res = build_library()
@@ -725,9 +736,11 @@ def main() -> int:
         opt_cfg = lv2_config(obs_path, opt_path)
         nll_kernel.reset_launches()
         t0 = time.perf_counter()
-        res = optimize(opt_cfg)
+        with LaunchTimer() as timer:
+            res = optimize(opt_cfg)
         wall = time.perf_counter() - t0
         opt_counts = dict(nll_kernel.launches)
+        kernel_s = timer.seconds()
         final = np.asarray(res["nll_optims"][:, -1], np.float64)
         restarts, stages = res["nll_optims"].shape
         if (restarts, stages) != (100, 4) or res["params_optims"].shape != (100, 4, 2):
@@ -753,6 +766,9 @@ def main() -> int:
                        best_final_nll=float(final[best]), nll_at_generating_params=truth,
                        best_optimum=optimum.tolist(), generating=generating.tolist(),
                        optimum_rel_err=rel.tolist(), units=res["units"],
+                       kernel_seconds=kernel_s, kernel_share=sum(kernel_s.values()) / wall,
+                       device_idle_share_at_most=1.0 - sum(kernel_s.values()) / wall,
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
                        iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
                        output=str(opt_path.relative_to(ROOT)))
     widest = max(u["widest"] for u in res["units"])
@@ -768,9 +784,12 @@ def main() -> int:
         kern.launch(phys, g)
         torch.cuda.synchronize()
         ms = event_times(lambda: kern.launch(phys, g), 7)
+        # beside it: one lane (the first grid point)
+        phys1 = phys[:, :1].contiguous()
+        ms_b1 = event_times(lambda: kern.launch(phys1, g), 7)
         _, plain_ms = sync_time(lambda: nll_kernel.nll_plain(cut(kern.cm, PLAIN_TIMING_STEPS), phys, kern.ys, g))
         b_ms, b_by, ops = bound_ms(kern.cm, 256)
-        fwd_line = {"name": "nll_fwd", "route": "cuda",
+        fwd_line = {"name": "nll_fwd (RKF45 step, a thread per lane)", "route": "cuda",
                     "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cu",
                     "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:722",
                     "launches": eval_launches + opt_counts["nll_fwd"],
@@ -779,7 +798,8 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         ph.info.update(shape=f"B=256, L={kern.cm.L}, d={kern.cm.d}, n_obs={kern.cm.n_obs}, float32",
                        event_ms=ms, ops=ops, launches_evaluate=eval_launches,
-                       launches_optimize=opt_counts["nll_fwd"])
+                       launches_optimize=opt_counts["nll_fwd"], event_ms_b1=ms_b1,
+                       median_ms_b1=float(np.median(ms_b1)))
 
     with Phase("grad_timing") as ph:
         # one nll_bwd launch as optimize makes it: its widest dispatch, the
@@ -792,12 +812,15 @@ def main() -> int:
         kern.grad.launch(phys, opt_gamma_sqrt, g, False, kern.opt_rows)
         torch.cuda.synchronize()
         ms = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, False, kern.opt_rows), 7)
-        # beside it: every parameter row (the launch before the direction list)
+        # beside it: every parameter row (the launch before the direction list),
+        # and one lane
         ms_all_rows = event_times(lambda: kern.grad.launch(phys, opt_gamma_sqrt, g, False), 7)
+        phys1, g1 = phys[:, :1].contiguous(), g[:1].contiguous()
+        ms_b1 = event_times(lambda: kern.grad.launch(phys1, opt_gamma_sqrt, g1, False, kern.opt_rows), 7)
         _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(kern.cm, PLAIN_TIMING_STEPS), phys, kern.ys,
                                                                    opt_gamma_sqrt, g))
         b_ms, b_by, ops = bound_ms(kern.cm, widest, grad=True)
-        bwd_line = {"name": "nll_bwd", "route": "cuda",
+        bwd_line = {"name": "nll_bwd (RKF45 step, a thread per lane and direction)", "route": "cuda",
                     "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cu",
                     "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:851",
                     "launches": opt_counts["nll_bwd"],
@@ -816,7 +839,8 @@ def main() -> int:
                              f"d={kern.cm.d}, n_obs={kern.cm.n_obs}, float32, gamma^1/2={opt_gamma_sqrt:.6g}",
                        event_ms=ms, ops=ops, library_call="none", median_ms=float(np.median(ms)),
                        event_ms_all_rows=ms_all_rows, median_ms_all_rows=float(np.median(ms_all_rows)),
-                       event_ms_with_dgamma=ms_dgamma, event_ms_float64=ms64, nll_fwd_event_ms_float64=ms64_fwd)
+                       event_ms_with_dgamma=ms_dgamma, event_ms_float64=ms64, nll_fwd_event_ms_float64=ms64_fwd,
+                       event_ms_b1=ms_b1, median_ms_b1=float(np.median(ms_b1)))
 
     with Phase("throughput") as ph:
         kern = bench_lv_kernel(torch.float32)

@@ -1,12 +1,13 @@
 // A forward-mode dual number for the chain math of ekf_chain.cuh: the value
 // and one tangent, with the operations that math uses. Comparisons act on
 // the value; |v| has the tangent sign(v) dv with sign(0) = 0, as in PyTorch
-// and JAX. Instantiating the chain on Dual<S> gives the NLL and its exact
-// derivative along the seeded direction (nll_bwd.cuh). For the
-// Hodgkin-Huxley rate laws it also has exp_t and expm1_t and the operations
-// of a jet of duals (Jet<Dual<S>, 1>, a Jacobian column with its
-// derivative) with constants of type S; team_chain.cuh gives the Kvaerno3
-// stage solution's tangent.
+// and JAX; quotients and square roots, tangents included, go through the
+// branch-free div_t and sqrt_t. Instantiating the chain on Dual<S> gives
+// the NLL and its exact derivative along the seeded direction
+// (nll_bwd.cuh). For the Hodgkin-Huxley rate laws it also has exp_t and
+// expm1_t and the operations of a jet of duals (Jet<Dual<S>, 1>, a
+// Jacobian column with its derivative) with constants of type S;
+// team_chain.cuh gives the Kvaerno3 stage solution's tangent.
 
 #pragma once
 
@@ -68,22 +69,8 @@ template <typename S>
 __device__ __forceinline__ Dual<S> operator*(S a, Dual<S> b) {
   return {a * b.v, a * b.d};
 }
-template <typename S>
-__device__ __forceinline__ Dual<S> operator/(Dual<S> a, Dual<S> b) {
-  const S q = a.v / b.v;
-  return {q, (a.d - q * b.d) / b.v};
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator/(Dual<S> a, S b) {
-  return {a.v / b, a.d / b};
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator/(S a, Dual<S> b) {
-  const S q = a / b.v;
-  return {q, -(q * b.d) / b.v};
-}
-// Quotients by the branch-free div_t of ekf_chain.cuh (the Hodgkin-Huxley
-// chain's), with operator/'s tangent rules.
+// Quotients by the branch-free div_t of ekf_chain.cuh, with the tangent
+// rule d(a/b) = (da - (a/b) db) / b; the chains divide through div_t only.
 template <typename S>
 __device__ __forceinline__ Dual<S> div_t(Dual<S> a, Dual<S> b) {
   const S q = div_t(a.v, b.v);
@@ -117,13 +104,13 @@ __device__ __forceinline__ S value_of(Dual<S> a) {
 // column's reflection is skipped (`live` false), and without it the NaN
 // of the unused reflector would reach every entry through a product with 0.
 template <typename S>
-__device__ __forceinline__ Dual<S> sqrt(Dual<S> a) {
-  const S r = ::sqrt(a.v);
-  return {r, a.v > S(0) ? a.d / (S(2) * r) : S(0)};
+__device__ __forceinline__ Dual<S> sqrt_t(Dual<S> a) {
+  const S r = sqrt_t(a.v);
+  return {r, a.v > S(0) ? div_t(a.d, S(2) * r) : S(0)};
 }
 template <typename S>
 __device__ __forceinline__ Dual<S> log(Dual<S> a) {
-  return {::log(a.v), a.d / a.v};
+  return {::log(a.v), div_t(a.d, a.v)};
 }
 template <typename S>
 __device__ __forceinline__ Dual<S> fabs(Dual<S> a) {

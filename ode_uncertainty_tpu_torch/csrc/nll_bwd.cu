@@ -61,7 +61,11 @@
 // (2K + 2) B + n_obs L values. Like the forward it is latency-bound at the
 // widths the optimizer dispatches (100 to 800 lanes, one to five
 // directions): the time is one thread's dependent chain, now of dual
-// operations.
+// operations, whose quotients and square roots (values and tangents) go
+// through the branch-free div_t and sqrt_t. A team of 2 threads per (lane,
+// direction) for the explicit step was measured 17% slower on an H100 SXM
+// (kernel_probe.py): the dual chain of one column is no shorter on its own
+// thread, and the QR's shuffles lengthen it.
 
 #include "nll_bwd.cuh"
 

@@ -15,8 +15,11 @@
 //   * predict: one embedded-RK step with the N columns of P carried as
 //     forward-mode tangents through every stage (the JVP of the step, not
 //     J_f(x) P), then P <- R^T of the Householder QR of [P_pred^T; (g Q)^T].
-//   * correct: S from the QR of [(H P)^T; R^T], the gain by two triangular
-//     substitutions, x and P updated in Joseph form, NLL of the innovation.
+//   * correct: at L = 1 the innovation's 1 x 1 factor s as the scaled norm
+//     of [(H P)^T; R] and one reciprocal of s for the gain; at L = 2, S from
+//     the QR of [(H P)^T; R^T] and the gain by two triangular
+//     substitutions; then x and P updated in Joseph form, NLL of the
+//     innovation.
 //
 // Design on Hopper. The TPU kernel put 1024 lanes in an (8, 128) vector tile
 // and unrolled the small-matrix algebra over lists of tiles. Here one thread
@@ -32,16 +35,22 @@
 // lane for a predict (5 live stages of RHS + 2 tangent columns, 10 stage
 // combinations and 4 solution weights over 6 values, a 4x2 QR with two
 // square roots and 10 divisions) and about 175 for a correct with L = 1
-// (310 with L = 2), as chip_smoke.py counts them in the plain version. The
-// bench batch is 8192 lanes = 256 warps over 132 SMs x 4 schedulers, so no
-// scheduler holds more than one warp and nothing hides latency: the time is
-// the dependent chain of one step (five RK stages in sequence, then the QR's
-// max-reduction, square roots and divisions, then the correct's
-// substitutions and log), not the 67 TFLOP/s f32 issue rate and not memory,
-// which sees K*B + n_obs*L + B values in all. Measured on an H100 SXM
-// (700 W, float32, chip_smoke.py): ~1.4 us a predict and ~1.1 us a
-// correct, where the operations of one step of 256 lanes would take
-// ~2.4 ns at the peak rate.
+// (310 with L = 2), as chip_smoke.py counts them in the plain version. No
+// dispatch of the main path fills the card (100 to 800 lanes; bench.py's
+// 8192 lanes are 256 warps over 132 SMs x 4 schedulers), so nothing hides
+// latency: the time is the dependent chain of one lane's 2000 steps, the
+// same at B = 1 and B = 8192, not the 67 TFLOP/s float32 issue rate and not
+// memory, which sees K*B + n_obs*L + B values in all. So every quotient and
+// square root goes through div_t and sqrt_t (ekf_chain.cuh): the IEEE
+// operations' slow-path branch after each of ~24 divisions and 5 square
+// roots a step cut the step into basic blocks that the scheduler could not
+// overlap. Measured on an H100 SXM (700 W, float32, L = 1, kernel_probe.py):
+// with the branches ~0.84 us a predict and ~1.23 us a correct; without them
+// ~0.37 us and ~0.44 us, where the operations of one step of 256 lanes take
+// ~2.4 ns at the peak rate. A team of 2 threads per lane (thread c owning
+// column c of P, the QR by shuffles, as the Kvaerno3 chain does) was
+// measured 12% slower for this kernel: both columns' tangents already
+// overlap in one thread, and the shuffles lengthen every QR column.
 //
 // The Kvaerno3 step (Hodgkin-Huxley, n = 4, 7, 8, L = 1, 10^4 steps). Per
 // step: the Jacobian at the base point, the inverse of I - h g J for the

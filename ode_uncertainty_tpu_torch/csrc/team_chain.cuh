@@ -63,7 +63,6 @@ namespace {
 // calls below (dual.cuh's templates would hide them)
 using ::fabs;
 using ::log;
-using ::sqrt;
 
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -287,7 +286,7 @@ __device__ __forceinline__ void team_qr(int c, T (&a0)[N], T (&a1)[N]) {
     for (int k = j; k < N; ++k) part[w + k - j] = c == j ? a0[k] : T(0);
     team_sum<TS>(part, 2 * w);
     const T col0 = part[w];
-    const T sigma = sqrt(col0 * col0 + part[0]);
+    const T sigma = sqrt_t(col0 * col0 + part[0]);
     const S sign = col0 >= S(0) ? S(1) : S(-1);
     const T alpha = -sign * sigma;
     const T v0 = col0 + sigma * sign;
@@ -446,7 +445,7 @@ __device__ __forceinline__ T team_correct(const Rig<typename Scalar<T>::type, N,
     T part[2] = {c == 0 ? e0 : T(0), (c > 0 ? e0 * e0 : T(0)) + e1 * e1};
     team_sum<TS>(part);
     const T col0 = part[0];
-    const T sigma = sqrt(col0 * col0 + part[1]);
+    const T sigma = sqrt_t(col0 * col0 + part[1]);
     const S sign = col0 >= S(0) ? S(1) : S(-1);
     const T alpha = -sign * sigma;
     const T v0 = col0 + sigma * sign;

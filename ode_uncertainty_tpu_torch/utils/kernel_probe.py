@@ -1,32 +1,49 @@
-"""Probe of the Kvaerno3 NLL kernels on one NVIDIA GPU: what the compiled
-code is made of and where a launch's time goes.
+"""Probe of the NLL kernels on one NVIDIA GPU: what the compiled code is
+made of and where a launch's time goes.
 
-    python ode_uncertainty_tpu_torch/utils/kernel_probe.py [--root CHECKOUT] [--out FILE]
+    python ode_uncertainty_tpu_torch/utils/kernel_probe.py [--root CHECKOUT] [--parts lv,hh] [--out FILE]
 
 ``--root`` names the checkout whose package (and so whose ``csrc/``) is
 probed, default the one this file is in, so one call can probe two trees
-side by side. It prints one JSON object (also written to ``--out``):
+side by side. ``--parts`` picks the timings: ``lv`` (the Lotka-Volterra
+kernels with the explicit RKF45 step) and ``hh`` (the Kvaerno3
+Hodgkin-Huxley ones), default both. It prints one JSON object (also
+written to ``--out``):
 
-* ``sass``: for each Hodgkin-Huxley kernel of the built library, the static
-  SASS instruction mix from ``cuobjdump -sass``: instructions in all, float32
-  and float64 arithmetic, IEEE division checks (``FCHK``), float64
-  reciprocal and square-root seeds (``MUFU.RCP64H``, ``MUFU.RSQ64H``), the
-  other ``MUFU`` operations, local-memory loads and stores (``LDL``/``STL``,
-  the spills), shared-memory loads and stores, shuffles, calls and branches;
+* ``sass``: for each NLL kernel of the built library (Lotka-Volterra and
+  Hodgkin-Huxley, forward and gradient, each type and observation size),
+  the static SASS instruction mix from ``cuobjdump -sass``: instructions in
+  all, float32 and float64 arithmetic, IEEE division checks (``FCHK``),
+  float64 reciprocal and square-root seeds (``MUFU.RCP64H``,
+  ``MUFU.RSQ64H``), the other ``MUFU`` operations, local-memory loads and
+  stores (``LDL``/``STL``, the spills), shared-memory loads and stores,
+  shuffles, calls and branches;
 * ``ptxas``: registers and spill bytes of every instantiation;
-* ``times``: CUDA-event medians (ms) of launches on params/hodgkinhuxley1_r4
-  at its full 10^4 steps: the forward at B = 1, 100 and 256, the forward with
-  the Newton iterations cut to 0 and with a correct every 10th step only
-  (the same predicts; these two split a step's time between its parts), the
-  n = 8 forward at bench.py's hh_full shape (B = 512), and the gradient at
-  B = 256 on g_Na (float32, with d/d gamma^1/2, float64);
-* ``times`` also holds the forward on the B = 100 lanes repeated to wider
-  batches (the same work per lane at every width);
-* ``placement``: the SM each block of a launch of one-warp blocks ran on
-  (a spinning probe kernel built here), as the number of distinct SMs and
-  the most blocks on one SM, for the block counts the HH launches make;
-* ``clocks``: nvidia-smi's SM clock, power limit and name, read after the
-  timings.
+* ``times`` (``lv``): CUDA-event medians (ms) of launches on
+  params/lotkavolterra2 (L = 1, 2000 RKF45 steps, a correct after every
+  step) with synthesized observations: the forward at B = 1, 100, 256 and
+  8192 in float32 and at B = 1 and 256 in float64; the same predicts with a
+  correct every 10th step only, at B = 1 and 256 (the two split a step's
+  time between predict and correct); the gradient at B = 1 and 256 on the
+  2 optimized rows, without and with d/d gamma^1/2, in float32 and float64;
+  and bench.py's `lv` shape (B = 8192, L = 2, a correct every 10th step);
+* ``times`` (``hh``): on params/hodgkinhuxley1_r4 at its full 10^4 steps:
+  the forward at B = 1, 100 and 256, the forward with the Newton iterations
+  cut to 0 and with a correct every 10th step only, the n = 8 forward at
+  bench.py's hh_full shape (B = 512), the gradient at B = 256 on g_Na
+  (float32, with d/d gamma^1/2, float64), and the forward on the B = 100
+  lanes repeated to wider batches (the same work per lane at every width);
+* ``placement`` (``hh``): the SM each block of a launch of one-warp blocks
+  ran on (a spinning probe kernel built here), as the number of distinct
+  SMs and the most blocks on one SM, for the block counts the HH launches
+  make;
+* ``arith``: where the checkout's ``csrc/ekf_chain.cuh`` has the branch-free
+  ``div_t`` and ``sqrt_t``, how many of 2^24 random operands (normal range,
+  float32 and float64; and 0) give another result than the IEEE ``/`` and
+  ``sqrt`` (a test kernel built here from that header);
+* ``card``: nvidia-smi's name and power limit, the card every number of the
+  report was measured on; ``clocks``: the same with the SM clock, read
+  after the timings.
 
 It needs a card and nvcc; without them it exits non-zero.
 """
@@ -57,6 +74,53 @@ extern "C" int launch_where(int blocks, int* out, long long spin) {
   return (int)cudaDeviceSynchronize();
 }
 """
+# Counts the operands where div_t / sqrt_t differ from the IEEE operations:
+# random bit patterns mapped into the normal range (exponents -60..60), and 0.
+ARITH_SRC = r"""
+#include "ekf_chain.cuh"
+namespace {  // beside ekf_chain.cuh's div_t: the global name is stdlib.h's type
+__device__ unsigned long long mix(unsigned long long x) {
+  x ^= x >> 33; x *= 0xff51afd7ed558ccdULL; x ^= x >> 33; x *= 0xc4ceb9fe1a85ec53ULL; x ^= x >> 33;
+  return x;
+}
+__device__ float f32_of(unsigned long long r) {
+  const unsigned m = static_cast<unsigned>(r) & 0x7fffffu, e = 127u - 60u + static_cast<unsigned>((r >> 32) % 121u);
+  return __uint_as_float((e << 23) | m) * ((r >> 40) & 1 ? -1.0f : 1.0f);
+}
+__device__ double f64_of(unsigned long long r) {
+  const unsigned long long e = 1023ull - 60ull + (mix(r) % 121ull);
+  return __longlong_as_double(static_cast<long long>((e << 52) | (r & 0xfffffffffffffull))) * ((r >> 60) & 1 ? -1.0 : 1.0);
+}
+__global__ void check(unsigned long long n, unsigned long long* bad) {
+  const unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long r1 = mix(2 * i + 1), r2 = mix(2 * i + 2);
+  const float a = f32_of(r1), b = f32_of(r2);
+  if (__float_as_uint(div_t(a, b)) != __float_as_uint(a / b)) atomicAdd(bad + 0, 1ull);
+  if (__float_as_uint(sqrt_t(fabsf(a))) != __float_as_uint(sqrtf(fabsf(a)))) atomicAdd(bad + 1, 1ull);
+  const double c = f64_of(r1), d = f64_of(r2);
+  if (__double_as_longlong(div_t(c, d)) != __double_as_longlong(c / d)) atomicAdd(bad + 2, 1ull);
+  if (__double_as_longlong(sqrt_t(::fabs(c))) != __double_as_longlong(::sqrt(::fabs(c)))) atomicAdd(bad + 3, 1ull);
+  if (i == 0) bad[4] = sqrt_t(0.0f) == 0.0f && sqrt_t(0.0) == 0.0 ? 0 : 1;
+}
+}  // namespace
+extern "C" int run_check(unsigned long long n, unsigned long long* bad) {
+  check<<<static_cast<unsigned>((n + 255) / 256), 256>>>(n, bad);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def _nvcc_lib(nvcc: str, build_dir: Path, name: str, src_text: str, include: Path = None) -> ctypes.CDLL:
+    build_dir.mkdir(parents=True, exist_ok=True)
+    src, lib_path = build_dir / f"{name}.cu", build_dir / f"lib{name}.so"
+    src.write_text(src_text)
+    inc = ["-I", str(include)] if include else []
+    done = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+                           "-Xcompiler", "-fPIC", *inc, "-o", str(lib_path), str(src)], capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
+    return ctypes.CDLL(str(lib_path))
 
 
 def placement(nvcc: str, build_dir: Path) -> dict:
@@ -64,12 +128,7 @@ def placement(nvcc: str, build_dir: Path) -> dict:
     blocks that spin ~1 ms each (all resident at once)."""
     import torch
 
-    build_dir.mkdir(parents=True, exist_ok=True)
-    src, lib_path = build_dir / "placement.cu", build_dir / "libplacement.so"
-    src.write_text(PLACEMENT_SRC)
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O2", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", str(lib_path), str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _nvcc_lib(nvcc, build_dir, "placement", PLACEMENT_SRC)
     lib.launch_where.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
     out = {}
     for blocks in (13, 32, 64, 128):
@@ -81,22 +140,52 @@ def placement(nvcc: str, build_dir: Path) -> dict:
     return out
 
 
+def arith(nvcc: str, build_dir: Path, csrc: Path) -> dict:
+    """Operands on which div_t and sqrt_t differ from IEEE / and sqrt."""
+    import torch
+
+    if "sqrt_t" not in (csrc / "ekf_chain.cuh").read_text():
+        return {"skipped": "no sqrt_t in this checkout"}
+    lib = _nvcc_lib(nvcc, build_dir, "arith", ARITH_SRC, csrc)
+    lib.run_check.argtypes = [ctypes.c_ulonglong, ctypes.c_void_p]
+    n = 1 << 24
+    bad = torch.zeros(5, dtype=torch.int64, device="cuda")
+    if lib.run_check(n, bad.data_ptr()) != 0:
+        raise RuntimeError("arithmetic check failed to run")
+    b = bad.tolist()
+    return {"operands": n, "div_t_f32_differs": b[0], "sqrt_t_f32_differs": b[1], "div_t_f64_differs": b[2],
+            "sqrt_t_f64_differs": b[3], "sqrt_t_of_0_is_0": b[4] == 0}
+
+
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--parts", default="lv,hh", help="comma-separated: lv, hh")
     ap.add_argument("--out", default=None)
     return ap.parse_args()
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable name for a mangled NLL kernel: kernel, model, n, L, type."""
+    m = re.search(r"(nll_(?:fwd|bwd))(\w*?_team)?_kernelI([fd])((?:Li\d+E)*)", mangled)
+    ints = re.findall(r"Li(\d+)E", m.group(4))
+    if "HodgkinHuxley" in mangled:
+        model, n, obs = "hh", re.search(r"HodgkinHuxleyILi(\d+)E", mangled).group(1), "1"
+    else:  # thread per lane: <T, N, L, ...>; a team: <T, L, ...>
+        model, n, obs = "lv", ints[0] if len(ints) == 2 else "2", ints[-1]
+    team = " team" if m.group(2) else ""
+    return f"{m.group(1)}{team} {model} n={n} L={obs} {'f32' if m.group(3) == 'f' else 'f64'}"
+
+
 def sass_mix(lib_path: Path, cuobjdump: str) -> dict:
-    """Static instruction counts of each Hodgkin-Huxley kernel in the library."""
+    """Static instruction counts of each NLL kernel in the library."""
     text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
     out = {}
     name, counts = None, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "HodgkinHuxley" in m.group(1) else None
+            name = kernel_label(m.group(1)) if re.search(r"nll_(fwd|bwd)", m.group(1)) else None
             counts = collections.Counter() if name else None
             if name:
                 out[name] = counts
@@ -117,28 +206,80 @@ def sass_mix(lib_path: Path, cuobjdump: str) -> dict:
     return {k: {key: int(c.get(key, 0)) for key in keys} for k, c in out.items()}
 
 
-def main() -> int:
-    args = _args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
+def variant(fn, **changes):
+    """The forward wrapper on a changed chain (the rig constants rebuilt)."""
+    from ode_uncertainty_tpu_torch.ops import nll_kernel
+
+    cm = dataclasses.replace(fn.cm, **{k: v for k, v in changes.items() if k != "newton_iters"})
+    out = nll_kernel.NllFwd(cm, fn.spec, fn.ys)
+    if "newton_iters" in changes:
+        vals = cm.rig_doubles()
+        vals[6] = float(changes["newton_iters"])
+        out._rig = (ctypes.c_double * len(vals))(*vals)
+        out.grad._rig = out._rig
+    return out
+
+
+def median_ms(launch) -> float:
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("kernel_probe: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+    import chip_smoke
+
+    launch()
+    torch.cuda.synchronize()
+    return float(np.median(chip_smoke.event_times(launch, REPS)))
+
+
+def lv_times() -> tuple:
+    """The Lotka-Volterra kernels on params/lotkavolterra2 and bench.py's lv."""
+    import torch
+
+    import chip_smoke
+    from ode_uncertainty_tpu_torch.run_parameter_estimation import gammas_of
+
+    dev = chip_smoke.DEVICE
+    out_dir = chip_smoke.OUT
+    out_dir.mkdir(exist_ok=True)
+    obs = out_dir / "probe_lv2_observations.npz"
+    chip_smoke.synthesize_observations(obs)
+    cfg = chip_smoke.lv2_config(obs, out_dir / "probe_lv2.npz")
+    gs0 = float(torch.sqrt(gammas_of(cfg, torch.float64)[0]))
+    k32, k64 = chip_smoke.lv2_kernel(cfg, torch.float32), chip_smoke.lv2_kernel(cfg, torch.float64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+    for b in (1, 100, 256, 8192):
+        p = torch.rand((b, 2), generator=gen, dtype=torch.float32, device=dev)
+        phys, phys64 = k32.physical(p), k64.physical(p.double())
+        times[f"fwd_lv2_f32_B{b}"] = median_ms(lambda: k32.launch(phys, gs0))
+        if b in (1, 256):
+            times[f"fwd_lv2_f64_B{b}"] = median_ms(lambda: k64.launch(phys64, gs0))
+            sparse = variant(k32, d=10, n_obs=k32.cm.n_obs // 10)
+            times[f"fwd_lv2_f32_B{b}_correct_every_10"] = median_ms(lambda: sparse.launch(phys, gs0))
+            g, g64 = torch.ones(b, dtype=torch.float32, device=dev), torch.ones(b, dtype=torch.float64, device=dev)
+            for dg in (False, True):
+                tag = "_dgamma" if dg else ""
+                times[f"bwd_lv2_f32_B{b}_2dir{tag}"] = median_ms(
+                    lambda: k32.grad.launch(phys, gs0, g, dg, k32.opt_rows))
+                times[f"bwd_lv2_f64_B{b}_2dir{tag}"] = median_ms(
+                    lambda: k64.grad.launch(phys64, gs0, g64, dg, k64.opt_rows))
+    kb = chip_smoke.bench_lv_kernel(torch.float32)
+    pb = torch.rand((8192, 2), generator=gen, dtype=torch.float32, device=dev)
+    physb = kb.physical(pb)
+    times["fwd_bench_lv_f32_B8192"] = median_ms(lambda: kb.launch(physb, 0.1))
+    shape = {"lv2_steps": k32.cm.first + 1 + (k32.cm.n_obs - 1) * k32.cm.d, "lv2_corrects": k32.cm.n_obs,
+             "lv2_gamma_sqrt": gs0, "bench_lv_corrects": kb.cm.n_obs, "bench_lv_gamma_sqrt": 0.1}
+    return times, shape
+
+
+def hh_times(root: Path) -> tuple:
+    """The Kvaerno3 kernels on params/hodgkinhuxley1_r4 and bench.py's hh_full."""
+    import torch
+
+    import chip_smoke
     from ode_uncertainty_tpu_torch.ops import nll_kernel
     from ode_uncertainty_tpu_torch.run_parameter_estimation import build_rig, gammas_of
-    from ode_uncertainty_tpu_torch.utils import cuda_build
     from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment
-
-    import chip_smoke  # the checkout's own ptxas parser and hh_full rig
-
-    chip_smoke.DEVICE = "cuda"
-    res = cuda_build.build_library()
-    cuobjdump = str(Path(cuda_build.nvcc_path()).with_name("cuobjdump"))
-    report = {"root": str(root), "nvcc_seconds": res.seconds, "ptxas": chip_smoke.ptxas_report(res.log),
-              "sass": sass_mix(res.path, cuobjdump)}
 
     data = root / "ode_uncertainty_tpu_torch" / "data" / "hodgkinhuxley_r4.npz"
     cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"), {"y_path": str(data), "device": "cuda"})
@@ -148,22 +289,6 @@ def main() -> int:
         rig = build_rig(cfg, dtype, torch.device("cuda"))
         return nll_kernel.make_nll_cuda(rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0,
                                         rig.num_steps, rig.q_sqrt)
-
-    def variant(fn, **changes):
-        """The wrapper on a changed chain (the rig constants are rebuilt)."""
-        cm = dataclasses.replace(fn.cm, **{k: v for k, v in changes.items() if k != "newton_iters"})
-        out = nll_kernel.NllFwd(cm, fn.spec, fn.ys)
-        if "newton_iters" in changes:
-            vals = cm.rig_doubles()
-            vals[6] = float(changes["newton_iters"])
-            out._rig = (ctypes.c_double * len(vals))(*vals)
-            out.grad._rig = out._rig
-        return out
-
-    def median_ms(launch) -> float:
-        launch()
-        torch.cuda.synchronize()
-        return float(np.median(chip_smoke.event_times(launch, REPS)))
 
     k32, k64 = kernel(torch.float32), kernel(torch.float64)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -194,12 +319,42 @@ def main() -> int:
     pb = torch.rand((512, kb.spec.num_opt), generator=gen, dtype=torch.float32, device="cuda")
     physb = kb.physical(pb)
     times["fwd_hh8_f32_B512"] = median_ms(lambda: kb.launch(physb, 0.1))
-    report["times"] = times
-    report["placement"] = placement(cuda_build.nvcc_path(), root / "build" / "probe")
-    report["shape"] = {"steps": k32.cm.n_obs, "gamma_sqrt": gs0, "reps": REPS}
-    report["clocks"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    return times, {"hh4_steps": k32.cm.n_obs, "hh4_gamma_sqrt": gs0}
+
+
+def main() -> int:
+    args = _args()
+    root = Path(args.root).resolve()
+    parts = set(args.parts.split(","))
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from ode_uncertainty_tpu_torch.utils import cuda_build
+
+    import chip_smoke  # the checkout's own ptxas parser and rigs
+
+    chip_smoke.DEVICE = "cuda"
+    smi = lambda q: subprocess.run(["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+                                   capture_output=True, text=True, check=True).stdout.strip()
+    res = cuda_build.build_library()
+    cuobjdump = str(Path(cuda_build.nvcc_path()).with_name("cuobjdump"))
+    report = {"root": str(root), "card": smi("name,power.limit"), "nvcc_seconds": res.seconds,
+              "ptxas": chip_smoke.ptxas_report(res.log), "sass": sass_mix(res.path, cuobjdump),
+              "arith": arith(cuda_build.nvcc_path(), root / "build" / "probe", root / "ode_uncertainty_tpu_torch" / "csrc"),
+              "times": {}, "shape": {"reps": REPS}}
+    if "lv" in parts:
+        times, shape = lv_times()
+        report["times"].update(times)
+        report["shape"].update(shape)
+    if "hh" in parts:
+        times, shape = hh_times(root)
+        report["times"].update(times)
+        report["shape"].update(shape)
+        report["placement"] = placement(cuda_build.nvcc_path(), root / "build" / "probe")
+    report["clocks"] = smi("name,power.limit,clocks.sm,clocks.max.sm")
     line = json.dumps(report)
     print(line, flush=True)
     if args.out:

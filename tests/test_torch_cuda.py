@@ -19,7 +19,12 @@ against the float64 plain version (on the host's CPU); float32 lane-normalized
 |k - p| / (|p| + 1) <= 1e-2 (the implicit gradient tolerance of
 tests/test_pallas_ekf.py:319). The Kvaerno3 kernels run a team of threads
 per lane, several teams to a warp; batches of 1, 3, 33 and 257 lanes leave
-the last warp part empty, with the same limits (a 40-step onset rig).
+the last warp part empty, with the same limits (a 40-step onset rig). The
+Lotka-Volterra kernels run on the same ragged batches (a 100-step rig with
+a correct after every step at L = 1 and every 10th at L = 2) against the
+float64 plain version on the host's CPU: values float64 rtol 1e-9, float32
+|k - p| / (|p| + 1) <= 2e-4; gradients float64 rtol 1e-9, float32
+|k - p| / (|p| + 1) <= 5e-3.
 """
 
 from pathlib import Path
@@ -107,6 +112,40 @@ def test_grad_kernel_matches_plain_version_on_the_card(dtype, obs_rows):
             assert rel <= 1e-9, rel
         else:
             assert lane <= 5e-3, lane
+
+
+_RAGGED = (1, 3, 33, 257)  # lanes: none of them fills the last warp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("obs_rows,obs_every", [([[1.0, 0.0]], 1), ([[1.0, 0.0], [0.0, 1.0]], 10)])
+def test_lv_kernels_on_ragged_batches(dtype, obs_rows, obs_every):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NLL kernels have no CPU mode (chip_smoke.py runs them)")
+    fn = _kernel(getattr(torch, dtype), obs_rows, num_steps=100, obs_every=obs_every)
+    fn64 = _kernel(torch.float64, obs_rows, num_steps=100, obs_every=obs_every)
+    p = torch.as_tensor(np.random.default_rng(8).uniform(size=(max(_RAGGED), 2)), device="cuda")
+    phys64, ys64 = fn64.physical(p).cpu(), fn64.ys.cpu()
+    want = nll_kernel.nll_plain(fn64.cm, phys64, ys64, 0.1).numpy()
+    ones = torch.ones(max(_RAGGED), dtype=torch.float64)
+    dphys, dgamma = nll_kernel.nll_grad_plain(fn64.cm, phys64, ys64, torch.full_like(ones, 0.1), ones)
+    want_grad = torch.cat([dphys, dgamma[None]]).numpy()
+    for batch in _RAGGED:
+        got = fn(p[:batch], 0.1)
+        g = torch.ones(batch, dtype=fn.cm.dtype, device="cuda")
+        dp, dg = fn.grad.launch(fn.physical(p[:batch]), 0.1, g)
+        torch.cuda.synchronize()
+        got = got.double().cpu().numpy()
+        got_grad = torch.cat([dp, dg[None]]).double().cpu().numpy()
+        assert got.shape == (batch,) and np.isfinite(got).all() and np.isfinite(got_grad).all()
+        rel, lane = _grad_err(got_grad, want_grad[:, :batch])
+        if dtype == "float64":
+            np.testing.assert_allclose(got, want[:batch], rtol=1e-9, atol=0.0)
+            assert rel <= 1e-9, (batch, rel)
+        else:
+            assert (np.abs(got - want[:batch]) / (np.abs(want[:batch]) + 1.0)).max() <= 2e-4
+            assert lane <= 5e-3, (batch, lane)
 
 
 @pytest.mark.cuda
@@ -235,7 +274,6 @@ def test_kvaerno3_grad_kernel_matches_plain_version_on_the_card(dtype):
     assert not part[others].any()
 
 
-_RAGGED = (1, 3, 33, 257)  # lanes: none of them fills the last warp of teams
 _RAGGED_STEPS = 40
 _RAGGED_PLAIN: dict = {}
 
