@@ -5,8 +5,8 @@
 // launched by `_bwd_call` :892) for an explicit Runge-Kutta step
 // (Lotka-Volterra) and for the Kvaerno3 step (`_make_sdirk_step_tiles`
 // :291-364 with the stage solve's custom_jvp :301-332; Hodgkin-Huxley
-// reduced-4). Given the per-lane cotangent g of the NLL it computes, per
-// lane and for each direction of the launch's list,
+// reduced-4, reduced-1 and full). Given the per-lane cotangent g of the NLL
+// it computes, per lane and for each direction of the launch's list,
 //   dphys[k] = g * dNLL/dphys[k]   for a parameter row k in the list,
 //   dgamma   = g * dNLL/dgamma_sqrt (summed over lanes by the caller).
 // The rows not in the list are left as the caller initialized them (the
@@ -47,8 +47,9 @@
 // is a jet of duals with one tangent (4 values an entry), the solves,
 // QRs and products are shared by the team, and divisions run without the
 // slow-path branch. Per implicit stage the rule adds one value Jacobian
-// column, one dual RHS and one team solve. Hodgkin-Huxley reduced-4 only
-// (n = 4, one unit per type, nll_bwd_hh4_{f32,f64}.cu).
+// column, one dual RHS and one team solve. Hodgkin-Huxley reduced-4 (n = 4,
+// a team of 4), reduced-1 (n = 7) and full (n = 8, a team of 8), one unit
+// per variant and type (nll_bwd_hh{4,7,8}_{f32,f64}.cu).
 //
 // Tangent rules: a comparison or a select (the QR's max-abs scale and its
 // `scale > 0` guard, the sign, the zero-column guard `vnorm_sq > eps`) acts
@@ -69,19 +70,24 @@
 
 #include "nll_bwd.cuh"
 
-// One unit each (nll_bwd_hh4_*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4, in
-// float and double.
+// One unit each (nll_bwd_hh*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4,
+// reduced-1 and full, in float and double.
 #define ODEUQ_DECLARE(NAME)                                                                    \
   extern "C" int NAME(const void* phys, int k_params, int batch, const void* ys, const double* rig, \
                       double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,   \
                       void* dgamma, void* stream);
 ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f32)
 ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f64)
+ODEUQ_DECLARE(odeuq_nll_bwd_hh7_f32)
+ODEUQ_DECLARE(odeuq_nll_bwd_hh7_f64)
+ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f32)
+ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f64)
 #undef ODEUQ_DECLARE
 
 // dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
-// reduced-4. tableau: 0 RKF45, 1 Kvaerno3. Instantiated: Lotka-Volterra x
-// RKF45 (n = 2, L = 1 or 2) and Hodgkin-Huxley reduced-4 x Kvaerno3 (L = 1).
+// reduced-4, 2 reduced-1, 3 full. tableau: 0 RKF45, 1 Kvaerno3.
+// Instantiated: Lotka-Volterra x RKF45 (n = 2, L = 1 or 2) and the three
+// Hodgkin-Huxley variants x Kvaerno3 (n = 4, 7, 8; L = 1).
 // phys: [k_params, batch]; ys: [n_obs, obs_dim]; g: [batch] NLL cotangent;
 // rows: the n_rows parameter rows to differentiate (host memory, distinct);
 // out dphys: [k_params, batch], written on those rows; out dgamma: [batch]
@@ -109,13 +115,16 @@ extern "C" int odeuq_nll_bwd(int dtype, int n, int obs_dim, int model, int table
                                                      rows, n_rows, dphys, dgamma, s);
     return -1;
   }
-  if (model == 1 && tableau == 1 && n == 4 && obs_dim == 1 && k_params >= HodgkinHuxley<4>::K) {
-    if (dtype == 0)
-      return odeuq_nll_bwd_hh4_f32(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
-                                   dgamma, stream);
-    if (dtype == 1)
-      return odeuq_nll_bwd_hh4_f64(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
-                                   dgamma, stream);
-  }
+  if (tableau != 1 || obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
+  const bool f32 = dtype == 0;
+  if (model == 1 && n == 4)
+    return (f32 ? odeuq_nll_bwd_hh4_f32 : odeuq_nll_bwd_hh4_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                                rows, n_rows, dphys, dgamma, stream);
+  if (model == 2 && n == 7)
+    return (f32 ? odeuq_nll_bwd_hh7_f32 : odeuq_nll_bwd_hh7_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                                rows, n_rows, dphys, dgamma, stream);
+  if (model == 3 && n == 8)
+    return (f32 ? odeuq_nll_bwd_hh8_f32 : odeuq_nll_bwd_hh8_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                                rows, n_rows, dphys, dgamma, stream);
   return -1;
 }

@@ -26,19 +26,23 @@ last block.
 Scope (:func:`supports`): the exact ``SqrtEKF`` type with
 ``disable_cov_update=True``, a uniform observation grid read in row order,
 and a (model, solver) pair and (state, observation) size the kernels are
-instantiated for: Lotka-Volterra with RKF45, n = 2 and L = 1 or 2 (both
-kernels); the three single-compartment Hodgkin-Huxley variants with
-Kvaerno3, n = 4, 7 or 8 and L = 1 (``nll_fwd``), of which reduced-4
-(n = 4) also has ``nll_bwd``; :meth:`NllGrad.launch` raises for the
-others. The gradient of the implicit step follows the stage solve's
-implicit-function rule, not the Newton loop (``ChainMath._kvaerno3_step``).
+instantiated for: Lotka-Volterra with RKF45, n = 2 and L = 1 or 2, and
+the three single-compartment Hodgkin-Huxley variants with Kvaerno3,
+n = 4, 7 or 8 and L = 1, each with both kernels; :meth:`NllGrad.launch`
+raises for the others. The gradient of the implicit step follows the
+stage solve's implicit-function rule, not the Newton loop
+(``ChainMath._kvaerno3_step``).
 
-Time: step i of observation interval j starts at ``t_start(j) + i h``,
-``t_start`` computed from the step index in double precision and rounded
-to the working type once (the rule of ``make_nll_tiles``). The port's
-``make_nll`` accumulates ``t += h`` in the working type instead, as the JAX
-package's XLA path does; at the stimulus edges of Hodgkin-Huxley the two
-rules can take different sides of ``t >= 10``.
+Time: by default step i of observation interval j starts at
+``t_start(j) + i h``, ``t_start`` computed from the step index in double
+precision and rounded to the working type once (the rule of
+``make_nll_tiles``). With ``accumulate_time`` the step times are the
+running sum ``t += h`` in the working type, as the JAX package's XLA
+``make_nll`` (and the port's ``make_nll``) computes them; at the stimulus
+edges of Hodgkin-Huxley the two rules can take different sides of
+``t >= 10`` and ``t <= 90``. The entry points (``batched_nll`` in
+``run_parameter_estimation.py``) run the running sum, so that ``evaluate``
+and ``optimize`` compute what the JAX CLI computes in each working type.
 """
 
 from __future__ import annotations
@@ -140,8 +144,8 @@ _SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1}
 _KERNELS = {
     ("lotka_volterra", "rkf45"): ("fwd", "bwd"),
     ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd", "bwd"),
-    ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd",),
-    ("hodgkin_huxley_full", "kvaerno3"): ("fwd",),
+    ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd", "bwd"),
+    ("hodgkin_huxley_full", "kvaerno3"): ("fwd", "bwd"),
 }
 _SIZES = {(2, 1), (2, 2), (4, 1), (7, 1), (8, 1)}  # (state size n, observation size L)
 _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
@@ -150,10 +154,10 @@ _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 def no_grad_kernel(model_name: str, solver_name: str, n: int) -> str:
     """Why ``nll_bwd`` has no instantiation for this chain."""
     return (
-        f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the Kvaerno3 gradient "
-        "kernel is instantiated for Hodgkin-Huxley reduced-4 (n = 4) only; the n = 7 and n = 8 units "
-        "(reduced-1, full) are not built yet, and the route without a kernel (make_nll + autograd) "
-        "needs the second-order stage-solve rule, StageSolve.backward, which is not ported either"
+        f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the gradient kernel is "
+        "instantiated for Lotka-Volterra with RKF45 and for the single-compartment Hodgkin-Huxley variants "
+        "with Kvaerno3 (n = 4, 7, 8); the route without a kernel (make_nll + autograd) needs the "
+        "second-order stage-solve rule, StageSolve.backward, which is not ported"
     )
 
 
@@ -801,8 +805,8 @@ def make_nll_cuda(model, solver, ekf, spec, obs, state0, num_steps: int, q_sqrt,
     """Builds the kernel wrapper for a configuration :func:`supports` covers.
     ``q_sqrt`` [n, n] is a constant of the experiment; the tempering scale
     ``gamma_sqrt`` is a call argument. ``accumulate_time`` switches the step
-    times to the XLA path's running sum (to measure the gap between the two
-    rules; the entry points keep the tiles' rule)."""
+    times from the tiles' step-index rule to the XLA path's running sum,
+    which the entry points run."""
     del num_steps  # the uniform grid fixes the horizon that matters
     if not supports(model, solver, ekf, obs):
         raise ValueError("configuration not covered by the NLL kernel (see supports())")

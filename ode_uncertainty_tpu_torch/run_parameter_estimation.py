@@ -13,10 +13,12 @@ goes through the CUDA kernels of ``ops/nll_kernel.py`` (``nll_fwd``, and for
 ``optimize``'s gradient ``nll_bwd``), or their plain versions on CPU tensors;
 else through the port's ``make_nll`` (with autograd for the gradient), which
 on the CPU runs about ten times slower than the plain versions (its
-linearization goes through ``torch.func.jvp``). ``parameter_sensitivity`` is
-not ported and raises. ``optimize`` with the Kvaerno3 solver runs on the
-kernels' route only (Hodgkin-Huxley reduced-4, whose gradient kernel is
-instantiated) and raises elsewhere: ``make_nll`` + autograd would need the
+linearization goes through ``torch.func.jvp``). Both routes advance the
+step time as the running sum ``t += h`` in the working type, as the JAX
+CLI's XLA ``make_nll`` does. ``parameter_sensitivity`` is not ported and
+raises. ``optimize`` with the Kvaerno3 solver runs on the kernels' route
+only (the single-compartment Hodgkin-Huxley variants, reduced-4, reduced-1
+and full) and raises elsewhere: ``make_nll`` + autograd would need the
 second-order stage-solve rule, which is not ported. Results go to the
 ``output`` path: H5, or ``.npz`` for a path with that suffix.
 
@@ -26,6 +28,9 @@ Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/hodgkinhuxley1_r4 \\
       --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_r4.npz [--set output=out.npz]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/hodgkinhuxley7_full \\
+      --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_full.npz [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
@@ -112,7 +117,12 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
     kernels' wrapper (differentiable through nll_bwd) when they cover the
     configuration (with ``grad``, the gradient kernel too) and no estimation
     flag asks for more than they compute, else the port's make_nll at the
-    rig's q_sqrt.
+    rig's q_sqrt. The kernels' wrapper runs the step times as the running
+    sum ``t += h`` in the working type (``accumulate_time``), the rule of
+    the JAX CLI's XLA ``make_nll`` and of the port's ``make_nll``, so that
+    both routes compute what the reference computes in each working type
+    (the kernels' default, the step index, can switch the Hodgkin-Huxley
+    stimulus on or off one step apart).
 
     ``initial_state_parametrized`` builds each lane's initial state from its
     parameters, which the kernels (one x0 for every lane) do not; it takes
@@ -126,7 +136,8 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
     init_param = bool(cfg.get("initial_state_parametrized", False))
     if not init_param and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad):
         return make_nll_cuda(
-            rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt
+            rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt,
+            accumulate_time=True,
         ), True
     nll = make_nll(
         rig.model,
@@ -174,11 +185,10 @@ def optimize(cfg) -> dict:
     ):
         # the route without a kernel would reach StageSolve.backward
         raise NotImplementedError(
-            f"optimize with the Kvaerno3 (implicit) solver runs on the NLL kernels only, and the Kvaerno3 "
-            f"gradient kernel does not cover {rig.model.name} (n = {rig.model.state_size}) here: it is "
-            "instantiated for single-compartment Hodgkin-Huxley reduced-4 (n = 4) with "
-            "disable_cov_update=True, a uniform observation grid and initial_state_parametrized=false. "
-            "Missing: the n = 7 and n = 8 gradient units (reduced-1, full), and StageSolve.backward "
+            f"optimize with the Kvaerno3 (implicit) solver runs on the NLL kernels only, and they do not "
+            f"cover {rig.model.name} (n = {rig.model.state_size}) here: the Kvaerno3 kernels are instantiated "
+            "for single-compartment Hodgkin-Huxley (reduced-4, reduced-1, full) with disable_cov_update=True, "
+            "a uniform observation grid and initial_state_parametrized=false. Missing: StageSolve.backward "
             "(the second-order stage-solve rule) for make_nll + autograd; evaluate runs on this configuration"
         )
     spec = rig.spec

@@ -30,9 +30,12 @@ written to ``--out``):
 * ``times`` (``hh``): on params/hodgkinhuxley1_r4 at its full 10^4 steps:
   the forward at B = 1, 100 and 256, the forward with the Newton iterations
   cut to 0 and with a correct every 10th step only, the n = 8 forward at
-  bench.py's hh_full shape (B = 512), the gradient at B = 256 on g_Na
-  (float32, with d/d gamma^1/2, float64), and the forward on the B = 100
-  lanes repeated to wider batches (the same work per lane at every width);
+  bench.py's hh_full shape (B = 512) and its gradient on the 11 rows, the
+  gradient at B = 256 on g_Na (float32, with d/d gamma^1/2, float64), the
+  forward on the B = 100 lanes repeated to wider batches (the same work per
+  lane at every width); and on params/hodgkinhuxley7_full (n = 8) and
+  6_r1 (n = 7), the forward and the gradient on the optimized rows at
+  B = 256, float32 and float64, with the entry points' time rule;
 * ``placement`` (``hh``): the SM each block of a launch of one-warp blocks
   ran on (a spinning probe kernel built here), as the number of distinct
   SMs and the most blocks on one SM, for the block counts the HH launches
@@ -273,7 +276,9 @@ def lv_times() -> tuple:
 
 
 def hh_times(root: Path) -> tuple:
-    """The Kvaerno3 kernels on params/hodgkinhuxley1_r4 and bench.py's hh_full."""
+    """The Kvaerno3 kernels on params/hodgkinhuxley1_r4, bench.py's hh_full
+    (forward and gradient) and the n = 7 / n = 8 gradients at an optimize
+    dispatch of params/hodgkinhuxley6_r1 and 7_full."""
     import torch
 
     import chip_smoke
@@ -319,6 +324,23 @@ def hh_times(root: Path) -> tuple:
     pb = torch.rand((512, kb.spec.num_opt), generator=gen, dtype=torch.float32, device="cuda")
     physb = kb.physical(pb)
     times["fwd_hh8_f32_B512"] = median_ms(lambda: kb.launch(physb, 0.1))
+    gb = torch.ones(512, dtype=torch.float32, device="cuda")
+    times["bwd_hh8_f32_B512_11dir"] = median_ms(lambda: kb.grad.launch(physb, 0.1, gb, False, kb.opt_rows))
+    # the n = 7 and n = 8 gradients at an optimize dispatch of 256 lanes on
+    # the optimized rows of params/hodgkinhuxley6_r1 and 7_full
+    for experiment, data, n in (("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz", 8),
+                                ("params/hodgkinhuxley6_r1", "hodgkinhuxley_r1.npz", 7)):
+        hcfg = chip_smoke.hh_config(experiment, data)
+        for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            rig = build_rig(hcfg, dtype, torch.device("cuda"))
+            kn = nll_kernel.make_nll_cuda(rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0,
+                                          rig.num_steps, rig.q_sqrt, accumulate_time=True)
+            pn = torch.rand((256, kn.spec.num_opt), generator=gen, dtype=torch.float32, device="cuda").to(dtype)
+            physn, gn = kn.physical(pn), torch.ones(256, dtype=dtype, device="cuda")
+            rows = len(kn.opt_rows)
+            times[f"bwd_hh{n}_{label}_B256_{rows}dir"] = median_ms(
+                lambda: kn.grad.launch(physn, gs0, gn, False, kn.opt_rows))
+            times[f"fwd_hh{n}_{label}_B256"] = median_ms(lambda: kn.launch(physn, gs0))
     return times, {"hh4_steps": k32.cm.n_obs, "hh4_gamma_sqrt": gs0}
 
 

@@ -19,7 +19,8 @@ against the float64 plain version (on the host's CPU); float32 lane-normalized
 |k - p| / (|p| + 1) <= 1e-2 (the implicit gradient tolerance of
 tests/test_pallas_ekf.py:319). The Kvaerno3 kernels run a team of threads
 per lane, several teams to a warp; batches of 1, 3, 33 and 257 lanes leave
-the last warp part empty, with the same limits (a 40-step onset rig). The
+the last warp part empty, with the same limits (a 40-step onset rig; values
+and gradients of reduced-4, reduced-1 and full). The
 Lotka-Volterra kernels run on the same ragged batches (a 100-step rig with
 a correct after every step at L = 1 and every 10th at L = 2) against the
 float64 plain version on the host's CPU: values float64 rtol 1e-9, float32
@@ -224,9 +225,6 @@ def test_kvaerno3_kernel_matches_plain_version_on_the_card(dtype, experiment, da
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=0.0)
     else:
         assert (np.abs(got - want) / (np.abs(want) + 1.0)).max() <= 5e-4
-    if experiment == "params/hodgkinhuxley7_full":  # no Kvaerno3 gradient unit for n = 8
-        with pytest.raises(NotImplementedError, match="Kvaerno3"):
-            fn.grad.launch(fn.physical(p), 0.1, torch.ones(16, dtype=fn.cm.dtype, device="cuda"))
 
 
 _PLAIN_GRAD: dict = {}
@@ -319,10 +317,12 @@ def test_kvaerno3_team_kernel_on_ragged_batches(dtype, experiment, data):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_kvaerno3_team_grad_kernel_on_ragged_batches(dtype):
+@pytest.mark.parametrize("experiment,data", [("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"),
+                                             ("params/hodgkinhuxley6_r1", "hodgkinhuxley_full.npz"),
+                                             ("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz")])
+def test_kvaerno3_team_grad_kernel_on_ragged_batches(dtype, experiment, data):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the nll_bwd kernel has no CPU mode (chip_smoke.py runs it)")
-    experiment, data = "params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"
     fn = _hh_kernel(experiment, data, getattr(torch, dtype), steps=_RAGGED_STEPS)
     p = torch.as_tensor(np.random.default_rng(7).uniform(size=(max(_RAGGED), 1)), device="cuda")
     want = _ragged_plain(experiment, data, p, grad=True)

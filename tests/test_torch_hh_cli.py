@@ -2,9 +2,10 @@
 kernel's route: its plain version on the CPU) against the JAX CLI, the
 committed npz copies of the Hodgkin-Huxley observation files, and
 ``optimize`` on Kvaerno3 experiments: it runs on the kernels' route for
-reduced-4 (its gradient kernel is instantiated) and raises, before any
-NLL is built, for the variants without a gradient unit (reduced-1, full)
-and for multi-compartment HH, never falling through to ``make_nll`` +
+the single-compartment variants (reduced-4, reduced-1 and full: their
+gradient units are instantiated) and raises, before any NLL is built,
+where no kernel covers the configuration (multi-compartment HH,
+``initial_state_parametrized``), never falling through to ``make_nll`` +
 autograd (which would need the second-order stage-solve rule).
 
 Both CLIs run float64 at a cut horizon (``tN=0.3``, 30 steps, before the
@@ -62,7 +63,7 @@ def test_hh_evaluate_cli_matches_jax_cli(tmp_path):
         np.testing.assert_allclose(got["nll_evals"][()], ref["nll_evals"][()], rtol=1e-9, atol=0.0)
 
 
-@pytest.mark.parametrize("name", ["hodgkinhuxley_r4", "hodgkinhuxley_full"])
+@pytest.mark.parametrize("name", ["hodgkinhuxley_r4", "hodgkinhuxley_r1", "hodgkinhuxley_full"])
 def test_npz_copies_equal_the_observation_files(name):
     with h5py.File(REPO / "results" / "noise_gt" / f"{name}.h5", "r") as ref, \
             np.load(DATA / f"{name}.npz", allow_pickle=False) as got:
@@ -71,6 +72,7 @@ def test_npz_copies_equal_the_observation_files(name):
             assert got[key].dtype == ref[key].dtype == np.float32
             assert got[key].shape[0] == 10001
             np.testing.assert_array_equal(got[key], ref[key][()])
+            assert got[key].tobytes() == ref[key][()].tobytes()  # bit for bit, NaN rows too
 
 
 def test_hh_evaluate_reads_the_npz_copy(tmp_path):
@@ -94,32 +96,37 @@ def _no_make_nll(monkeypatch):
 
 
 def test_optimize_on_kvaerno3_raises(tmp_path, monkeypatch):
-    # HH full (n = 8) has no Kvaerno3 gradient unit
+    # HH full with initial_state_parametrized: each lane's initial state
+    # comes from its parameters, which the kernels do not compute, and the
+    # route without them needs StageSolve.backward
     _no_make_nll(monkeypatch)
     cfg = build_config(load_experiment("params/hodgkinhuxley7_full"),
-                       {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
-    with pytest.raises(NotImplementedError, match="Kvaerno3 gradient kernel"):
+                       {"device": "cpu", "tN": 0.05, "initial_state_parametrized": True,
+                        "output": str(tmp_path / "out.npz")})
+    with pytest.raises(NotImplementedError, match="Missing: StageSolve.backward"):
         rpe.optimize(cfg)
     assert not (tmp_path / "out.npz").exists()
 
 
-@pytest.mark.parametrize("experiment", ["params/hodgkinhuxley6_r1", "params/hodgkinhuxley2_c2_r4"])
+@pytest.mark.parametrize("experiment", ["params/hodgkinhuxley2_c2_r4"])
 def test_optimize_on_kvaerno3_without_a_gradient_unit_raises(tmp_path, monkeypatch, experiment):
-    # reduced-1 (n = 7) and multi-compartment HH: no gradient unit either
+    # multi-compartment HH: no kernel covers it
     _no_make_nll(monkeypatch)
     cfg = build_config(load_experiment(experiment),
                        {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
-    with pytest.raises(NotImplementedError, match="n = 7 and n = 8 gradient units.*StageSolve.backward"):
+    with pytest.raises(NotImplementedError, match="do not cover .*Missing: StageSolve.backward"):
         rpe.optimize(cfg)
     assert not (tmp_path / "out.npz").exists()
 
 
-def test_optimize_on_kvaerno3_r4_takes_the_kernels_route(tmp_path, monkeypatch):
+def _optimize_on_the_kernels_route(tmp_path, monkeypatch, experiment, data):
+    """optimize at a cut depth (tN 0.05, 2 restarts, 2 stages, 2 iterations)
+    with make_nll refused; returns the result, the config and the (model,
+    solver, rows) of every gradient the wrapper was asked for."""
     _no_make_nll(monkeypatch)
-    cfg = build_config(load_experiment("params/hodgkinhuxley1_r4"),
+    cfg = build_config(load_experiment(experiment),
                        {"device": "cpu", "tN": 0.05, "num_random_runs": 2, "num_tempering_stages": 2,
-                        "lbfgs_maxiter": 2, "y_path": str(DATA / "hodgkinhuxley_r4.npz"),
-                        "output": str(tmp_path / "out.npz")})
+                        "lbfgs_maxiter": 2, "y_path": str(DATA / data), "output": str(tmp_path / "out.npz")})
     seen = []
     grad = nll_kernel.NllGrad.__call__
 
@@ -130,8 +137,30 @@ def test_optimize_on_kvaerno3_r4_takes_the_kernels_route(tmp_path, monkeypatch):
     monkeypatch.setattr(nll_kernel.NllGrad, "__call__", spy)
     res = rpe.optimize(cfg)
     assert res["route"] == "nll_fwd + nll_bwd kernels"
-    assert res["params_optims"].shape == (2, 2, 1) and np.isfinite(res["nll_optims"]).all()
+    assert np.isfinite(res["nll_optims"]).all()
+    return res, cfg, seen
+
+
+def test_optimize_on_kvaerno3_r4_takes_the_kernels_route(tmp_path, monkeypatch):
+    res, cfg, seen = _optimize_on_the_kernels_route(tmp_path, monkeypatch, "params/hodgkinhuxley1_r4",
+                                                    "hodgkinhuxley_r4.npz")
+    assert res["params_optims"].shape == (2, 2, 1)
     # every gradient went through the Kvaerno3 gradient wrapper, for the
     # optimized row alone (the parameter rows follow the sorted names)
     row = sorted(cfg["ode_builder"].params).index("g_Na")
     assert seen and set(seen) == {("hodgkin_huxley_reduced-4", "kvaerno3", (row,))}
+
+
+@pytest.mark.parametrize("experiment,data,variant", [
+    ("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz", "full"),
+    ("params/hodgkinhuxley6_r1", "hodgkinhuxley_r1.npz", "reduced-1"),
+])
+def test_optimize_on_kvaerno3_full_and_r1_take_the_kernels_route(tmp_path, monkeypatch, experiment, data, variant):
+    # the n = 8 and n = 7 gradient units: every gradient on the optimized
+    # rows alone (7 for hodgkinhuxley7_full, 6 for hodgkinhuxley6_r1)
+    res, cfg, seen = _optimize_on_the_kernels_route(tmp_path, monkeypatch, experiment, data)
+    names = sorted(cfg["ode_builder"].params)
+    rows = tuple(sorted(names.index(k) for k, on in cfg["params_optimized"].items() if on))
+    assert len(rows) == {"full": 7, "reduced-1": 6}[variant]
+    assert res["params_optims"].shape == (2, 2, len(rows))
+    assert seen and set(seen) == {(f"hodgkin_huxley_{variant}", "kvaerno3", rows)}

@@ -38,6 +38,23 @@ def jax_make_nll_grads(p, gamma_sqrt):
     return np.asarray(vals), np.concatenate([np.asarray(dp), np.asarray(dg)[:, None]], axis=1)
 
 
+def jax_central_differences(jrig, p, gamma_sqrt, step):
+    """XLA make_nll [B] at the normalized points p [B, P] and its central
+    differences [B, P + 1] in each coordinate of p and in gamma^1/2, with
+    ``step`` in every coordinate: one jit, vmapped over the points and
+    their 2 (P + 1) neighbours (a rig where jax.grad of make_nll takes
+    minutes to compile)."""
+    nll, q = j_make_nll(*jrig), jnp.eye(jrig[0].dim)
+    f = jax.jit(jax.vmap(lambda x, g: nll(x, q, g)))
+    b, dim = p.shape
+    shifts = np.concatenate([np.zeros((1, dim + 1)), step * np.eye(dim + 1), -step * np.eye(dim + 1)])
+    xs = np.concatenate([p + s[:dim] for s in shifts])
+    gs = np.concatenate([np.full(b, gamma_sqrt + s[dim]) for s in shifts])
+    vals = np.asarray(f(jnp.asarray(xs), jnp.asarray(gs))).reshape(len(shifts), b)
+    plus, minus = vals[1 : dim + 2], vals[dim + 2 :]
+    return vals[0], ((plus - minus) / (2.0 * step)).T
+
+
 def port_grads(trig, p, gamma_sqrt, accumulate_time):
     """The plain gradient pulled back to the normalized point: (NLL [B],
     d/d p_norm [B, P], d/d gamma^1/2 [B]) with a unit cotangent per lane."""

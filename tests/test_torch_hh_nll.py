@@ -34,7 +34,6 @@ from ode_uncertainty_tpu_torch.utils.carry import rig_from_numpy
 from ode_uncertainty_tpu_torch.utils.config import load_experiment
 
 HH_RANGES = load_experiment("params/hodgkinhuxley1_r4")["params_range"]
-OPT = {k: k in ("g_Na", "g_K") for k in HH_RANGES}
 TOL = {
     "float64": dict(rtol=1e-9, atol=0.0),
     "float32": dict(rtol=5e-4, atol=5e-3),
@@ -42,10 +41,11 @@ TOL = {
 _CACHE: dict = {}
 
 
-def jax_hh_rig(variant, dtype, t0, steps, x0=None, seed=0):
+def jax_hh_rig(variant, dtype, t0, steps, x0=None, seed=0, optimized=("g_Na", "g_K")):
     """A JAX HH rig: Kvaerno3 at h = 0.01 from t0 (at the rest state unless
     ``x0`` [1, n] is given), V observed after every step, the observations
-    a float64 solve plus N(0, 0.1) noise from numpy's default_rng(seed)."""
+    a float64 solve plus N(0, 0.1) noise from numpy's default_rng(seed),
+    the parameters named in ``optimized`` varied."""
     jdt = getattr(jnp, dtype)
     m, h = jm.hodgkin_huxley(variant), 0.01
     sol = js.kvaerno3(h)
@@ -57,7 +57,7 @@ def jax_hh_rig(variant, dtype, t0, steps, x0=None, seed=0):
     ys = np.asarray(gt["x"])[idx].reshape(steps, n)
     ys = ys + np.sqrt(0.1) * np.random.default_rng(seed).standard_normal(ys.shape)
     obs = j_obs(np.eye(n)[:1], np.asarray(gt["t"])[idx], ys, 0.1, t0, h, steps, dtype=jdt)
-    spec = j_spec(m.params, HH_RANGES, OPT, dtype=jdt)
+    spec = j_spec(m.params, HH_RANGES, {k: k in optimized for k in HH_RANGES}, dtype=jdt)
     ekf = JEKF(disable_cov_update=True)
     state0 = ekf.init_state(t0, jnp.asarray(x0, jdt), j_const_diag(n, 1e-6, jdt), obs.obs_dim)
     return m, sol, ekf, spec, obs, state0, steps
@@ -94,11 +94,11 @@ def to_numpy(jrig):
     }
 
 
-def hh_rigs(variant, dtype, t0, steps, x0=None):
+def hh_rigs(variant, dtype, t0, steps, x0=None, optimized=("g_Na", "g_K")):
     """(JAX rig, port rig), cached per process."""
-    key = (variant, dtype, t0, steps, None if x0 is None else np.asarray(x0).tobytes())
+    key = (variant, dtype, t0, steps, None if x0 is None else np.asarray(x0).tobytes(), tuple(optimized))
     if key not in _CACHE:
-        jrig = jax_hh_rig(variant, dtype, t0, steps, x0)
+        jrig = jax_hh_rig(variant, dtype, t0, steps, x0, optimized=optimized)
         _CACHE[key] = (jrig, rig_from_numpy(to_numpy(jrig), device="cpu", dtype=getattr(torch, dtype)))
     return _CACHE[key]
 
@@ -153,15 +153,25 @@ def test_kernel_wrapper_runs_the_plain_version_on_cpu_and_has_no_gradient():
     assert torch.equal(dphys, want[0]) and torch.equal(dgamma, want[1])
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn.launch(fn.physical(p), 0.1)
-    # HH full has no Kvaerno3 gradient unit: the wrapper raises on either
-    # device, and autograd through the forward may not stand in for it
-    _, full = hh_rigs("full", "float64", 9.98, 4)
-    assert not nll_kernel.supports(full.model, full.solver, full.ekf, full.obs, grad=True)
-    fn_full = nll_kernel.make_nll_cuda(*port_args(full), full.q_sqrt)
-    with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        fn_full.grad(fn_full.physical(p), 0.1, g)
-    with pytest.raises(NotImplementedError, match="Kvaerno3"):
-        fn_full(p.clone().requires_grad_(True), 0.1).sum().backward()
+    # HH full (n = 8) and reduced-1 (n = 7) have their gradient units: on
+    # CPU tensors the wrapper runs the plain gradient
+    for variant in ("full", "reduced-1"):
+        _, other = hh_rigs(variant, "float64", 9.98, 4)
+        assert nll_kernel.supports(other.model, other.solver, other.ekf, other.obs, grad=True)
+        fn_other = nll_kernel.make_nll_cuda(*port_args(other), other.q_sqrt)
+        dphys, dgamma = fn_other.grad(fn_other.physical(p), 0.1, g)
+        want = nll_kernel.nll_grad_plain(fn_other.cm, fn_other.physical(p), fn_other.ys, 0.1, g)
+        assert torch.equal(dphys, want[0]) and torch.equal(dgamma, want[1])
+    assert nll_kernel.launches == before
+    # a chain without a gradient unit (HH with an explicit tableau, built
+    # around the wrapper by hand): the wrapper raises on either device, and
+    # autograd through the forward may not stand in for it
+    cm = nll_kernel.build_chain_math(trig.model, ts.dopri65(0.01), trig.spec, trig.obs, trig.state0, trig.q_sqrt)
+    fn_erk = nll_kernel.NllFwd(cm, trig.spec, trig.obs.ys)
+    with pytest.raises(NotImplementedError, match="no nll_bwd instantiation"):
+        fn_erk.grad(fn_erk.physical(p), 0.1, g)
+    with pytest.raises(NotImplementedError, match="no nll_bwd instantiation"):
+        fn_erk(p.clone().requires_grad_(True), 0.1).sum().backward()
 
 
 def test_supports_rules_for_the_implicit_step():
