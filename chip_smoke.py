@@ -153,10 +153,46 @@ Phases, each printing one JSON line with its own wall seconds:
                   bench.py's hh_full shape (B = 512, 11 rows, float32),
                   median of 3, each beside its bound and its plain version
                   at 20 steps.
- 18. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+ 18. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
+                  (Dopri65) and noise_gt/lotkavolterra (Kvaerno3, noise of
+                  variance 0.1 from a torch.Generator on the card), cut to
+                  ODE_GT_STEPS and ODE_NOISE_STEPS: x and t equal the port's
+                  float64 CPU run at rtol 1e-9; the noise (the card's noisy x
+                  minus the CPU's noise-free one) has a sample mean and
+                  variance within 5 standard errors of 0 and 0.1.
+ 19. filter_ekf   run_filter on ekf_trajectory/rkf45/{lotkavolterra, lorenz,
+                  vanderpol, lcao} at full size (2000-8000 steps), float32
+                  and float64: float64 card against the port's float64 CPU on
+                  x (elementwise, rtol 1e-9) and P_sqrt (each saved step
+                  relative to its largest element, 1e-9), Lorenz on its first
+                  LORENZ_HELD_STEPS steps (chaotic), the rest reported;
+                  float32 against float64 reported.
+ 20. filter_pf    run_filter on pf_trajectory/rkf45/lotkavolterra (100
+                  particles, 2000 steps, float32), twice with its seed:
+                  the same ensemble, every particle finite, particle 0 equal
+                  to make_solve_fn on the card at rtol 1e-9; the spread
+                  reported.
+ 21. filter_ext   run_filter on the LV ekf_trajectory config with the filter
+                  node swapped (DenseEKF, UKF, SqrtUKF, GMMSqrtEKF; 2000
+                  steps, float64): every output key against the float64 CPU
+                  at 1e-9 (each saved step relative to its largest element);
+                  reported beside it, the change that moving x0 by one ulp
+                  makes on the CPU.
+ 22. calibration  run_calibration on calibration/rkf45/lotkavolterra at full
+                  size (500 levels, 2000 steps, float32 and float64) on the
+                  committed ground truth (data/gt_lotkavolterra.npz): the
+                  float64 card's levels and NLLs (all 500 and nll_ours)
+                  against the float64 CPU at rtol 1e-9, the argmin level
+                  equal; float32 and the NLLs' one-ulp conditioning
+                  reported.
+                  The float64 CPU references of phases 18-22 run in a process
+                  of their own (REF_THREADS threads) from the build phase on.
+                  Each of these phases prints its wall and per-step seconds.
+ 23. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
                   Kvaerno3 step for n = 4, 7 and 8), the nvidia-smi line,
-                  then the device line.
+                  then the device line. The solution paths launch none of
+                  them: no TPU kernel lies on them.
 
 The build phase reports each instantiation's registers, spills and ptxas
 time. Every phase line after the first names the card and its power limit
@@ -213,6 +249,9 @@ HH_PARITY_LANES = 256
 HH_P99_F32 = 5e-4  # the implicit value tolerance of tests/test_pallas_ekf.py:314
 HH_GRID_CHECK = 8
 HH_PLAIN_TIMING_STEPS = 20  # the Kvaerno3 plain version costs ~0.2 s a step on the card
+# the n = 8 plain gradient's timing horizon: ~0.8 s a step on the card (16 s
+# for 20 steps, three timings), cut to make room for the solution phases
+HH_N8_PLAIN_TIMING_STEPS = 10
 HH_GNA_TRUE = 25.0  # the generating g_Na (models/hodgkin_huxley.py _SINGLE_DEFAULTS)
 HH_GRAD_LANES = 64
 HH_GRAD_P99_F32 = 1e-2  # the implicit gradient rtol of tests/test_pallas_ekf.py:319
@@ -237,9 +276,11 @@ HH_FULL_EXPERIMENT = "params/hodgkinhuxley7_full"
 HH_FULL_GRAD_RIG_STEPS = 60
 # hh_full_optimize's depth: the experiment's 400 would run for hours (one
 # dispatch, nll_fwd plus nll_bwd over 7 directions at up to 256 lanes, takes
-# 1.17 s on the card; at 20 the phase made 273 dispatches in 321 s); cut so
-# that the phase stays under ~240 s. The width (100 restarts, 4 stages,
-# 10^4 steps, 7 rows, float32, the real observations) is not cut.
+# 1.17 s on the card; at 20 the phase made 273 dispatches in 321 s, at 12
+# 175 in 205 s; at 6, 14 of the 100 restarts ended non-finite, measured on
+# one H100); cut so that the phase stays under ~240 s. The width (100
+# restarts, 4 stages, 10^4 steps, 7 rows, float32, the real observations)
+# is not cut.
 HH_FULL_LBFGS_MAXITER = 12
 HH_FULL_TIMING_REPS = 3  # CUDA-event timings of the n = 8 gradient (about a second each)
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
@@ -756,7 +797,262 @@ def hh_bench_kernel(dtype):
     return hh_kernel(cfg, dtype, 0.0, 10000, data="hodgkinhuxley_full.npz", spec=spec)
 
 
+# ---- probabilistic ODE solutions: run_ode_solver, run_filter, run_calibration ----
+SOLUTION_SYSTEMS = ("lotkavolterra", "lorenz", "vanderpol", "lcao")
+# Lorenz is chaotic: float32 and float64, or two devices, part within its
+# horizon; held on its first 1000 steps (t <= 10), reported after
+LORENZ_HELD_STEPS = 1000
+# depth of the ode_solver phase: gt/lotkavolterra is 800,000 Dopri65 steps
+# (h = 1e-4, tN 80) and noise_gt/lotkavolterra 200,000 Kvaerno3 steps, at
+# 1.67 ms and 7.8 ms a step on the card (the solve runs eagerly; measured
+# on one H100): hours at full depth, so both are cut to keep the phase
+# within about 30 s (the solvers, the step and the state are the configs')
+ODE_GT_STEPS = 10_000
+ODE_NOISE_STEPS = 1_000
+EXT_FILTERS = {"DenseEKF": "EKF", "UKF": "UKF", "SqrtUKF": "UKF_SQRT", "GMMSqrtEKF": "GMM_EKF"}
+GT_NPZ = ROOT / "ode_uncertainty_tpu_torch" / "data" / "gt_lotkavolterra.npz"
+REF_THREADS = 2  # CPU threads of the float64 reference process
+SOLUTION_DIR = OUT / "solution"
+
+
+def ulp_moved(x: np.ndarray) -> np.ndarray:
+    """Each element moved by one ulp up or down (signs from numpy seed 0)."""
+    return np.nextafter(x, np.random.default_rng(0).choice([-np.inf, np.inf], x.shape))
+
+
+def solution_jobs() -> dict:
+    """key -> (entry point, experiment, overrides) of every solution run."""
+    from ode_uncertainty_tpu_torch.utils.config import load_experiment as load
+
+    def h_of(name):
+        raw = load(name)
+        return raw["t0"], raw["solver_builder"]["init_args"]["step_size"]
+
+    t0, h = h_of("gt/lotkavolterra")
+    jobs = {"ode_gt": ("ode", "gt/lotkavolterra", {"tN": t0 + ODE_GT_STEPS * h})}
+    t0, h = h_of("noise_gt/lotkavolterra")
+    # every step saved (the config saves every 100th): the noise check then
+    # has 2 x 1,001 samples, so a missing or mis-scaled noise fails it
+    noise = {"tN": t0 + ODE_NOISE_STEPS * h, "save_interval": 1}
+    jobs["ode_noise"] = ("ode", "noise_gt/lotkavolterra", noise)
+    jobs["ode_noise_clean"] = ("ode", "noise_gt/lotkavolterra", {**noise, "noise_var": 0.0})
+    for system in SOLUTION_SYSTEMS:
+        jobs[f"ekf_{system}"] = ("filter", f"ekf_trajectory/rkf45/{system}", {})
+    lv = "ekf_trajectory/rkf45/lotkavolterra"
+    x0_moved = str(ulp_moved(np.asarray(parse_literal(load(lv)["x0"]), np.float64)).tolist())
+    for name, path in EXT_FILTERS.items():
+        jobs[f"ext_{name}"] = ("filter", lv, {"filter_builder": {"class_path": path}})
+        jobs[f"ext_{name}_ulp"] = ("filter", lv, {"filter_builder": {"class_path": path}, "x0": x0_moved})
+    jobs["pf"] = ("filter", "pf_trajectory/rkf45/lotkavolterra", {})
+    jobs["cal"] = ("cal", "calibration/rkf45/lotkavolterra", {"y_path": str(GT_NPZ)})
+    jobs["cal_ulp"] = ("cal", "calibration/rkf45/lotkavolterra", {"y_path": str(SOLUTION_DIR / "gt_ulp.npz")})
+    return jobs
+
+
+# the CPU float64 references: every job but the card-only ones
+CPU_JOBS = ("ode_gt", "ode_noise_clean", *[f"ekf_{s}" for s in SOLUTION_SYSTEMS],
+            *[f"ext_{n}{u}" for n in EXT_FILTERS for u in ("", "_ulp")], "cal", "cal_ulp")
+
+
+def run_solution(key: str, device: str, float64: bool) -> tuple:
+    """Runs job ``key`` through its entry point: (outputs as numpy, wall s,
+    solver steps)."""
+    from ode_uncertainty_tpu_torch import run_calibration, run_filter, run_ode_solver
+
+    entry, experiment, over = solution_jobs()[key]
+    raw = load_experiment(experiment)
+    out = SOLUTION_DIR / f"{key}_{device}_{'f64' if float64 else 'f32'}.npz"
+    cfg = build_config(raw, {**over, "device": device, "float64": float64, "output": str(out)})
+    mod = {"ode": run_ode_solver, "filter": run_filter, "cal": run_calibration}[entry]
+    steps = int(np.ceil((cfg["tN"] - cfg.get("t0", 0.0)) / cfg["solver_builder"].h))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mod.run(cfg)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)) for k, v in res.items()}, wall, steps
+
+
+def solution_references(out_dir: Path) -> None:
+    """The CPU float64 runs of CPU_JOBS, each saved as ``<key>.npz`` in
+    ``out_dir`` (with its wall seconds), then ``done``. Runs in a process
+    of its own beside the card phases."""
+    torch.set_num_threads(REF_THREADS)
+    with np.load(GT_NPZ) as z:
+        np.savez(SOLUTION_DIR / "gt_ulp.npz", t=z["t"], x=ulp_moved(z["x"]))
+    for key in CPU_JOBS:
+        res, wall, steps = run_solution(key, "cpu", True)
+        np.savez(out_dir / f"{key}.npz", **res, _wall_s=wall, _steps=steps)
+    (out_dir / "done").write_text("ok")
+
+
+def start_solution_references() -> subprocess.Popen:
+    SOLUTION_DIR.mkdir(exist_ok=True)
+    for stale in SOLUTION_DIR.glob("*"):
+        stale.unlink()
+    log = open(OUT / "solution_references.log", "w")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--solution-references",
+                             str(SOLUTION_DIR)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def reference(proc: subprocess.Popen, key: str) -> dict:
+    """The CPU reference of ``key``, waiting for the reference process."""
+    while not (SOLUTION_DIR / "done").exists():
+        if proc.poll() is not None:
+            raise AssertionError("the CPU reference process failed: "
+                                 + (OUT / "solution_references.log").read_text()[-4000:])
+        time.sleep(0.5)
+    with np.load(SOLUTION_DIR / f"{key}.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def rel_gap(got: np.ndarray, ref: np.ndarray, axis_from: int = 1) -> np.ndarray:
+    """|got - ref| relative to |ref| elementwise, and relative to the largest
+    |ref| of the same saved step where the element is 0 (per step: a
+    trajectory's covariance grows by orders of magnitude)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    diff = np.abs(got - ref)
+    if ref.ndim > axis_from:
+        largest = np.abs(ref).max(axis=tuple(range(axis_from, ref.ndim)), keepdims=True)
+    else:
+        largest = np.abs(ref).max()
+    scale = np.where(ref != 0, np.abs(ref), largest)
+    return np.where(diff == 0, 0.0, diff / np.where(scale > 0, scale, np.inf))
+
+
+def step_scaled_gap(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """max |got - ref| of each saved step over the largest |ref| of that step."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    axes = tuple(range(1, ref.ndim))
+    largest = np.abs(ref).max(axis=axes)
+    return np.abs(got - ref).max(axis=axes) / np.where(largest > 0, largest, np.inf)
+
+
+def solution_phases(refs: subprocess.Popen) -> None:
+    """The ode_solver, filter_ekf, filter_pf, filter_ext and calibration
+    phases (see the module note)."""
+    with Phase("ode_solver") as ph:
+        gt, gt_s, gt_steps = run_solution("ode_gt", "cuda", True)
+        noisy, noise_s, noise_steps = run_solution("ode_noise", "cuda", True)
+        ref_gt, ref_clean = reference(refs, "ode_gt"), reference(refs, "ode_noise_clean")
+        x_gap = rel_gap(gt["x"], ref_gt["x"])
+        if not (np.array_equal(gt["t"], ref_gt["t"]) or rel_gap(gt["t"], ref_gt["t"], 0).max() <= RTOL_F64) \
+                or not x_gap.max() <= RTOL_F64:
+            raise AssertionError(f"gt/lotkavolterra: card and CPU differ: x {x_gap.max()}")
+        noise = (noisy["x"] - ref_clean["x"]).ravel()
+        nv = load_experiment("noise_gt/lotkavolterra")["noise_var"]
+        mean_se, var_se = np.sqrt(nv / noise.size), nv * np.sqrt(2.0 / (noise.size - 1))
+        held = abs(noise.mean()) <= 5 * mean_se and abs(noise.var(ddof=1) - nv) <= 5 * var_se
+        ph.info.update(
+            gt={"steps": gt_steps, "cut_from": 800_000, "wall_s": gt_s, "s_per_step": gt_s / gt_steps,
+                "x_max_rel_gap_vs_cpu_f64": float(x_gap.max()), "rtol": RTOL_F64,
+                "eps_max_gap_rel_to_step_largest_reported": float(step_scaled_gap(gt["eps"], ref_gt["eps"]).max()),
+                "cpu_wall_s": float(ref_gt["_wall_s"])},
+            noise_gt={"steps": noise_steps, "cut_from": 200_000, "wall_s": noise_s, "s_per_step": noise_s / noise_steps,
+                      "samples": int(noise.size), "noise_var": nv, "mean": float(noise.mean()), "mean_se": float(mean_se),
+                      "var": float(noise.var(ddof=1)), "var_se": float(var_se), "held_5_se": bool(held),
+                      "eps_max_gap_rel_to_step_largest_reported": float(step_scaled_gap(noisy["eps"], ref_clean["eps"]).max())})
+        if not held:
+            raise AssertionError(f"noise_gt/lotkavolterra noise statistics off: {ph.info['noise_gt']}")
+
+    with Phase("filter_ekf") as ph:
+        systems = {}
+        for system in SOLUTION_SYSTEMS:
+            key = f"ekf_{system}"
+            r64, s64, steps = run_solution(key, "cuda", True)
+            r32, s32, _ = run_solution(key, "cuda", False)
+            ref = reference(refs, key)
+            held = LORENZ_HELD_STEPS + 1 if system == "lorenz" else len(ref["t"])
+            x_gap, p_gap = rel_gap(r64["x"], ref["x"]), step_scaled_gap(r64["P_sqrt"], ref["P_sqrt"])
+            entry = {"steps": steps, "held_steps": held - 1, "s_per_step_f64": s64 / steps, "s_per_step_f32": s32 / steps,
+                     "wall_s_f64": s64, "wall_s_f32": s32, "cpu_s_per_step_f64": float(ref["_wall_s"]) / steps,
+                     "x_max_rel_gap_held": float(x_gap[:held].max()), "P_sqrt_max_gap_held": float(p_gap[:held].max()),
+                     "x_max_rel_gap_after_reported": float(x_gap[held:].max(initial=0.0)),
+                     "P_sqrt_max_gap_after_reported": float(p_gap[held:].max(initial=0.0)),
+                     "f32_vs_f64_x_max_lane_err_reported": float(
+                         (np.abs(r32["x"] - r64["x"]) / (np.abs(r64["x"]) + 1.0))[:held].max()),
+                     "f32_vs_f64_P_sqrt_max_gap_reported": float(step_scaled_gap(r32["P_sqrt"], r64["P_sqrt"])[:held].max()),
+                     "f32_finite": bool(np.isfinite(r32["x"]).all() and np.isfinite(r32["P_sqrt"]).all())}
+            systems[system] = entry
+            if not (entry["x_max_rel_gap_held"] <= RTOL_F64 and entry["P_sqrt_max_gap_held"] <= RTOL_F64):
+                raise AssertionError(f"{system}: float64 card against float64 CPU off: {entry}")
+            if not np.array_equal(r64["t"], ref["t"]):
+                raise AssertionError(f"{system}: time grids differ")
+        ph.info.update(rtol=RTOL_F64, systems=systems)
+
+    with Phase("filter_pf") as ph:
+        a, s_a, steps = run_solution("pf", "cuda", False)
+        b, _, _ = run_solution("pf", "cuda", False)
+        raw = load_experiment("pf_trajectory/rkf45/lotkavolterra")
+        x0 = torch.tensor(parse_literal(raw["x0"]), dtype=torch.float32, device=DEVICE)
+        det = solvers.solve(solvers.rkf45(raw["solver_builder"]["init_args"]["step_size"]), models.lotka_volterra(),
+                            raw["t0"], x0, steps)
+        p0_gap = rel_gap(a["x"][:, 0], det["x"].cpu().numpy())
+        spread = a["x"][:, 1:].std(axis=1).max(axis=(-2, -1))
+        checks = {"same_seed_same_ensemble": bool(np.array_equal(a["x"], b["x"])),
+                  "all_finite": bool(np.isfinite(a["x"]).all()),
+                  "particle0_vs_solve_max_rel_gap": float(p0_gap.max())}
+        ph.info.update(particles=int(a["x"].shape[1]), steps=steps, dtype="float32", wall_s=s_a, s_per_step=s_a / steps,
+                       rtol=RTOL_F64, spread_reported={"t": a["t"][::400].tolist(), "max_std": spread[::400].tolist()},
+                       spread_grows=bool(spread[-1] > spread[1]), **checks)
+        if not (checks["same_seed_same_ensemble"] and checks["all_finite"] and p0_gap.max() <= RTOL_F64):
+            raise AssertionError(f"particle filter checks failed: {checks}")
+
+    with Phase("filter_ext") as ph:
+        filters = {}
+        for name in EXT_FILTERS:
+            got, wall, steps = run_solution(f"ext_{name}", "cuda", True)
+            ref, probe = reference(refs, f"ext_{name}"), reference(refs, f"ext_{name}_ulp")
+            entry = {"steps": steps, "wall_s": wall, "s_per_step": wall / steps,
+                     "cpu_s_per_step": float(ref["_wall_s"]) / steps, "keys": {}}
+            for key in sorted(k for k in ref if not k.startswith("_")):
+                scaled = step_scaled_gap if ref[key].ndim > 1 else (lambda a, b: rel_gap(a, b, 0))
+                # held at the limit; beside it (reported) the change that
+                # moving x0 by one ulp makes on the CPU: the conditioning
+                entry["keys"][key] = {"gap": float(scaled(got[key], ref[key]).max()),
+                                      "one_ulp_x0_change_reported": float(scaled(probe[key], ref[key]).max())}
+                if not entry["keys"][key]["gap"] <= RTOL_F64:
+                    raise AssertionError(f"{name} {key}: float64 card against float64 CPU off: {entry['keys'][key]}")
+            filters[name] = entry
+        ph.info.update(experiment="ekf_trajectory/rkf45/lotkavolterra", rtol=RTOL_F64, filters=filters)
+
+    with Phase("calibration") as ph:
+        c64, s64, steps = run_solution("cal", "cuda", True)
+        c32, s32, _ = run_solution("cal", "cuda", False)
+        ref, probe = reference(refs, "cal"), reference(refs, "cal_ulp")
+        levels = ref["noise_levels"]
+        idx16 = np.linspace(0, levels.size - 1, 16).astype(int)
+        lev_gap = rel_gap(c64["noise_levels"], levels, 0)
+        out = {"levels": int(levels.size), "steps": steps, "wall_s_f64": s64, "wall_s_f32": s32,
+               "s_per_step_f64": s64 / steps, "s_per_step_f32": s32 / steps,
+               "cpu_s_per_step_f64": float(ref["_wall_s"]) / steps, "noise_levels_max_rel_gap": float(lev_gap.max())}
+        ok = lev_gap.max() <= RTOL_F64
+        for key in ("nll_conrad", "nll_ours"):
+            scale = np.abs(np.atleast_1d(ref[key]))
+            rel = np.atleast_1d(np.abs(c64[key] - ref[key])) / scale
+            ok &= bool(rel.max() <= RTOL_F64)
+            # reported beside it: the change that moving each observation by
+            # one ulp makes on the CPU (the NLL's conditioning)
+            out[key] = {"max_rel_gap": float(rel.max()),
+                        "rel_gap_16_levels": rel[idx16 if key == "nll_conrad" else [0]].tolist(),
+                        "max_rel_one_ulp_change_reported": float((np.atleast_1d(np.abs(probe[key] - ref[key])) / scale).max()),
+                        "f32_vs_f64_max_rel_reported": float((np.abs(np.atleast_1d(c32[key] - c64[key])) / scale).max())}
+        out["levels_16"] = levels[idx16].tolist()
+        out["argmin_card_f64"], out["argmin_cpu_f64"] = int(np.argmin(c64["nll_conrad"])), int(np.argmin(ref["nll_conrad"]))
+        out["argmin_card_f32_reported"] = int(np.argmin(c32["nll_conrad"]))
+        out["nll_ours_f64"], out["best_static_nll_f64"] = float(c64["nll_ours"]), float(c64["nll_conrad"].min())
+        ph.info.update(experiment="calibration/rkf45/lotkavolterra", ground_truth=str(GT_NPZ.relative_to(ROOT)),
+                       rtol=RTOL_F64, **out)
+        if not ok or out["argmin_card_f64"] != out["argmin_cpu_f64"]:
+            raise AssertionError(f"calibration: card and CPU differ: {out}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--solution-references"]:
+        solution_references(Path(sys.argv[2]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -777,6 +1073,19 @@ def main() -> int:
         (OUT / "nvcc_ptxas.txt").write_text(res.log)
         ph.info.update(nvcc_seconds=res.seconds, built=res.built, library=str(res.path.relative_to(ROOT)),
                        ptxas=ptxas_report(res.log))
+
+    # the CPU float64 references of the solution phases, in a process of
+    # their own beside the card phases
+    refs = start_solution_references()
+    try:
+        return run_phases(refs, t_start)
+    finally:
+        if refs.poll() is None:
+            refs.kill()
+        refs.wait()
+
+
+def run_phases(refs: subprocess.Popen, t_start: float) -> int:
 
     obs_path, out_path = OUT / "lv2_observations.npz", OUT / "lv2_evaluate.npz"
     out_path.unlink(missing_ok=True)
@@ -1355,13 +1664,13 @@ def main() -> int:
             launch()
             torch.cuda.synchronize()
             ms = event_times(launch, HH_FULL_TIMING_REPS)
-            _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(kern.cm, HH_PLAIN_TIMING_STEPS), phys,
+            _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(kern.cm, HH_N8_PLAIN_TIMING_STEPS), phys,
                                                                        kern.ys, gsv, g, kern.opt_rows))
             b_ms, b_by, ops = bound_ms(kern.cm, batch, grad=True)
             return {"shape": f"B={batch}, {len(kern.opt_rows)} directions, n={kern.cm.n}, L=1, d=1, "
                              f"n_obs={kern.cm.n_obs}, {str(kern.cm.dtype)[6:]}, gamma^1/2={gsv:.6g}",
                     "event_ms": ms, "ms": float(np.median(ms)), "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
-                    "plain_ms": plain_ms, "plain_steps": HH_PLAIN_TIMING_STEPS}
+                    "plain_ms": plain_ms, "plain_steps": HH_N8_PLAIN_TIMING_STEPS}
 
         # hh_full_optimize's wrapper (kf) and hh_grad_full_horizon's float64 one (k8)
         full_gs0 = float(torch.sqrt(gammas_of(hh_full_cfg, torch.float64)[0]))
@@ -1369,11 +1678,14 @@ def main() -> int:
               "hh_full_optimize_widest_f64": n8_timing(k8, full_widest, full_gs0),
               "bench_hh_full_f32": n8_timing(hh_bench_kernel(torch.float32), 512, float(np.sqrt(0.01)))}
         ph.info.update(n8=n8, library_call_n8="none")
-        hh_bwd_line["n8"] = {k: {f: v[f] for f in ("shape", "ms", "bound_ms", "bound_by", "plain_ms")}
+        hh_bwd_line["n8"] = {k: {f: v[f] for f in ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "plain_steps")}
                              for k, v in n8.items()}
 
+    # ---- probabilistic ODE solutions (no NLL kernel on these paths) ----
+    solution_phases(refs)
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    print(smi, flush=True)
+    print(CARD, flush=True)
     hh_line.update(launches=hh_counts["nll_fwd"] + hh_opt_counts["nll_fwd"] + full_opt_counts["nll_fwd"],
                    launches_by_path={"hh_main_path (n = 4)": hh_counts["nll_fwd"],
                                      "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],

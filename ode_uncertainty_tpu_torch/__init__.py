@@ -6,13 +6,20 @@ against in ``tests/test_torch_*.py``:
 
   * ``models``    — ODE right-hand sides and their default parameters.
   * ``solvers``   — embedded explicit Runge-Kutta steppers and the unroll.
-  * ``ops``       — square-root linear algebra, linearization, alignment and
-                    the hand-written CUDA NLL kernel (``ops/nll_kernel.py``,
-                    source in ``csrc/``).
-  * ``filters``   — the square-root EKF.
-  * ``inference`` — parameter box, observations, the tempered NLL and the
-                    NLL landscape.
-  * ``utils``     — H5 IO, config instantiation, the kernel build.
+  * ``ops``       — square-root linear algebra, the rank-1 Cholesky update,
+                    linearization, alignment and the hand-written CUDA NLL
+                    kernel (``ops/nll_kernel.py``, source in ``csrc/``).
+  * ``filters``   — the square-root EKF, the particle filter and the
+                    extension filters (dense EKF, UKF, square-root UKF,
+                    Gaussian-mixture sqrt-EKF).
+  * ``inference`` — parameter box, observations, the tempered NLL, the NLL
+                    landscape, the host L-BFGS, the trajectory drivers and
+                    the calibration sweep.
+  * ``utils``     — H5 IO, config instantiation, the loop (with CUDA graphs
+                    on the card), the kernel build.
+
+Entry points: ``run_parameter_estimation`` (optimize, evaluate),
+``run_ode_solver``, ``run_filter`` and ``run_calibration``.
 
 Tensors carry an explicit leading batch dimension where the JAX package used
 ``vmap``. Entry points run on ``device="cuda"`` unless the caller passes

@@ -9,6 +9,13 @@ two guards of the JAX package are kept as elementwise selects:
   * predict skips the QR sum with gamma*Q when the *effective* noise is below
     ``_Q_ACTIVE_THRESHOLD`` (at gamma == 0 exactly);
   * correct uses a zero gain when the innovation sqrt is all zero.
+
+The linearization runs in forward mode (``ops/linearize.py``) while autograd
+records, so that an outer gradient (``make_nll`` under ``optimize``) flows
+through it; without autograd (``torch.no_grad()``, as the trajectory and
+calibration entry points run) an explicit step is linearized in reverse
+mode, about 20x faster in PyTorch's eager mode. The values agree to
+rounding.
 """
 
 from __future__ import annotations
@@ -18,9 +25,10 @@ from typing import Callable
 
 import torch
 
-from ode_uncertainty_tpu_torch.filters.cov_updates import DiagonalUpdate
+from ode_uncertainty_tpu_torch.filters.cov_updates import DiagonalUpdate, StaticDiagonalUpdate
 from ode_uncertainty_tpu_torch.ops.linearize import push_sqrt
 from ode_uncertainty_tpu_torch.ops.sqrt_linalg import cho_solve_sqrt, sqrt_sum
+from ode_uncertainty_tpu_torch.solvers.erk import ERK
 
 _Q_ACTIVE_THRESHOLD = 1e-16
 
@@ -39,6 +47,24 @@ class EKFState:
 
     def replace(self, **kw) -> "EKFState":
         return dataclasses.replace(self, **kw)
+
+
+def linearized_step(solver, rhs: Callable, params, t, x: torch.Tensor, p_sqrt: torch.Tensor):
+    """One solver step of x [..., N, D] and the push of p_sqrt [..., n, k]
+    through its Jacobian: ``(x_next_flat [..., n], eps_flat [..., n], J @
+    p_sqrt)``. Reverse mode for an explicit step without autograd recording,
+    else forward mode (see the module note)."""
+    state_shape = x.shape[-2:]
+    n = state_shape[0] * state_shape[1]
+
+    def step_flat(xf):
+        lead = xf.shape[:-1]
+        x_next, eps = solver.step(rhs, params, t, xf.reshape(*lead, *state_shape))
+        return x_next.reshape(*lead, n), eps.reshape(*lead, n)
+
+    reverse = isinstance(solver, ERK) and not torch.is_grad_enabled()
+    (x_next_f, eps_f), jp = push_sqrt(step_flat, x.reshape(*x.shape[:-2], n), p_sqrt, reverse=reverse)
+    return x_next_f, eps_f, jp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +103,7 @@ class SqrtEKF:
 
         def predict(state: EKFState, params, q_sqrt, gamma_sqrt) -> EKFState:
             shape = state.x.shape
-            n = shape[-2] * shape[-1]
-            batch = shape[:-2]
-
-            def step_flat(xf):
-                x_next, eps = solver.step(rhs, params, state.t, xf.reshape(shape))
-                return x_next.reshape(*batch, n), eps.reshape(*batch, n)
-
-            (x_next_f, eps_f), p_pred = push_sqrt(step_flat, state.x.reshape(*batch, n), state.P_sqrt)
+            x_next_f, eps_f, p_pred = linearized_step(solver, rhs, params, state.t, state.x, state.P_sqrt)
 
             # Guard on the effective noise gamma*Q, not Q alone: at the final
             # tempering stage gamma == 0 and the QR sum is skipped.
@@ -108,8 +127,30 @@ class SqrtEKF:
 
         return predict
 
-    def make_correct(self):
-        """Returns ``correct(state, H, y, R_sqrt) -> EKFState`` (Joseph form)."""
+    def make_predict_static(self, solver, rhs: Callable):
+        """Conrad-baseline predict: fixed sigma^2 * I process noise per step.
+
+        Returns ``predict(state, params, sigma) -> EKFState``; ``sigma`` is []
+        or one noise level per lane of the state's leading dims (a
+        calibration sweep is one batch).
+        """
+        static = StaticDiagonalUpdate()
+
+        def predict(state: EKFState, params, sigma) -> EKFState:
+            shape = state.x.shape
+            x_next_f, eps_f, p_pred = linearized_step(solver, rhs, params, state.t, state.x, state.P_sqrt)
+            return state.replace(
+                t=state.t + solver.h,
+                x=x_next_f.reshape(shape),
+                eps=eps_f.reshape(shape),
+                P_sqrt=static.apply_sqrt(sigma, p_pred, eps_f),
+            )
+
+        return predict
+
+    def make_correct(self, unrolled: bool = False):
+        """Returns ``correct(state, H, y, R_sqrt) -> EKFState`` (Joseph form);
+        ``unrolled`` solves by substitution (``ops/sqrt_linalg.py``)."""
 
         def correct(state: EKFState, H: torch.Tensor, y: torch.Tensor, r_sqrt: torch.Tensor) -> EKFState:
             n = state.P_sqrt.shape[-1]
@@ -121,7 +162,7 @@ class SqrtEKF:
             s_sqrt = sqrt_sum(H @ p, r_sqrt)
 
             # K = P H^T S^{-1}  computed as (S^{-1} H P P^T)^T.
-            gain = (cho_solve_sqrt(s_sqrt, H) @ p @ p.transpose(-1, -2)).transpose(-1, -2)
+            gain = (cho_solve_sqrt(s_sqrt, H, unrolled) @ p @ p.transpose(-1, -2)).transpose(-1, -2)
             s_zero = torch.all(torch.abs(s_sqrt) < _Q_ACTIVE_THRESHOLD, dim=-1).all(dim=-1)
             k = torch.where(s_zero[..., None, None], torch.zeros_like(gain), gain)
 

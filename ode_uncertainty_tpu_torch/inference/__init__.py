@@ -1,8 +1,17 @@
 """Inference layer: parameter box, observations, the tempered NLL, the NLL
-landscape and the host L-BFGS. The on-device optimizer, calibration and
-metrics are not ported yet."""
+landscape, the host L-BFGS, the filter trajectory drivers and the
+calibration sweep. The on-device optimizer and the metrics are not ported
+yet."""
 
+from ode_uncertainty_tpu_torch.inference.calibrate import make_calibration
 from ode_uncertainty_tpu_torch.inference.estimate import EstimationResult, make_nll_landscape
+from ode_uncertainty_tpu_torch.inference.filter_run import (
+    make_dense_run,
+    make_ekf_run,
+    make_ekf_run_static,
+    make_gmm_run,
+    make_pf_run,
+)
 from ode_uncertainty_tpu_torch.inference.lbfgs_host import (
     HostLBFGSResult,
     lbfgs_box_host,
@@ -12,6 +21,7 @@ from ode_uncertainty_tpu_torch.inference.nll import make_nll
 from ode_uncertainty_tpu_torch.inference.observations import (
     ObsModel,
     compact_rows,
+    empty_obs_model,
     make_obs_model,
 )
 from ode_uncertainty_tpu_torch.inference.params import ParamSpec, make_param_spec
@@ -25,6 +35,12 @@ from ode_uncertainty_tpu_torch.inference.schedules import (
 
 __all__ = [
     "EstimationResult",
+    "make_calibration",
+    "make_dense_run",
+    "make_ekf_run",
+    "make_ekf_run_static",
+    "make_gmm_run",
+    "make_pf_run",
     "HostLBFGSResult",
     "lbfgs_box_host",
     "make_stage_optimizer_host",
@@ -32,6 +48,7 @@ __all__ = [
     "make_nll",
     "ObsModel",
     "compact_rows",
+    "empty_obs_model",
     "make_obs_model",
     "ParamSpec",
     "make_param_spec",

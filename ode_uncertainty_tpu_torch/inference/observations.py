@@ -96,3 +96,13 @@ def make_obs_model(
         index_map=torch.as_tensor(index_map, device=device),
     )
 
+
+def empty_obs_model(n: int, num_steps: int, dtype=torch.float32, device="cuda") -> ObsModel:
+    """Prediction-only mode: no observations, no corrections."""
+    return ObsModel(
+        H=torch.eye(n, dtype=dtype, device=device),
+        R_sqrt=torch.zeros((n, n), dtype=dtype, device=device),
+        ys=torch.zeros((1, n), dtype=dtype, device=device),
+        flags=torch.zeros(num_steps, dtype=torch.bool, device=device),
+        index_map=torch.zeros(num_steps, dtype=torch.int64, device=device),
+    )

@@ -40,31 +40,25 @@ Usage:
 
 from __future__ import annotations
 
-import math
 import time
 
 import numpy as np
 import torch
 
+from ode_uncertainty_tpu_torch._common import build_p0_sqrt, build_x0, load_observations, num_steps_of
 from ode_uncertainty_tpu_torch.inference import (
     EstimationResult,
     make_nll,
     make_nll_landscape,
-    make_obs_model,
     make_param_spec,
     make_stage_optimizer_host,
 )
-from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops.nll_kernel import make_nll_cuda, supports
 from ode_uncertainty_tpu_torch.solvers import Kvaerno3
 from ode_uncertainty_tpu_torch.utils.carry import Rig
 from ode_uncertainty_tpu_torch.utils.checkpoint import run_stage_grid
 from ode_uncertainty_tpu_torch.utils.config import apply_runtime_config, config_cli, parse_literal
-from ode_uncertainty_tpu_torch.utils.io import load_data, store_data
-
-
-def num_steps_of(cfg, solver) -> int:
-    return int(math.ceil((cfg["tN"] - cfg.get("t0", 0.0)) / solver.h))
+from ode_uncertainty_tpu_torch.utils.io import store_data
 
 
 def build_rig(cfg, dtype, device) -> Rig:
@@ -74,34 +68,15 @@ def build_rig(cfg, dtype, device) -> Rig:
     solver = cfg["solver_builder"]
     ekf = cfg["filter_builder"]
     num_steps = num_steps_of(cfg, solver)
-    x0_raw = torch.as_tensor(parse_literal(cfg["x0"]), dtype=dtype, device=device)
-    x0 = model.build_initial_value(x0_raw, model.params).to(dtype)
+    x0_raw, x0 = build_x0(cfg, model, dtype, device)
     n = x0.numel()
-
-    if cfg.get("y_path") is None or cfg.get("measurement_matrix") is None:
+    obs, has_obs = load_observations(cfg, solver, num_steps, n, dtype, device)
+    if not has_obs:
         raise ValueError("Estimation requires y_path and measurement_matrix")
-    data = load_data(cfg["y_path"])
-    obs = make_obs_model(
-        np.asarray(parse_literal(cfg["measurement_matrix"]), dtype=float),
-        np.asarray(data["t"]),
-        np.asarray(data["x"]),
-        cfg.get("obs_noise_var", 1e-3),
-        cfg.get("t0", 0.0),
-        solver.h,
-        num_steps,
-        dtype=dtype,
-        device=device,
-    )
     spec = make_param_spec(
         model.params, cfg["params_range"], cfg.get("params_optimized"), dtype=dtype, device=device
     )
-    p0 = cfg.get("P0")
-    p0_sqrt = (
-        const_diag(n, 1e-12, dtype, device)
-        if p0 is None
-        else torch.linalg.cholesky(torch.as_tensor(parse_literal(p0), dtype=dtype, device=device))
-    )
-    state0 = ekf.init_state(cfg.get("t0", 0.0), x0, p0_sqrt, obs.obs_dim)
+    state0 = ekf.init_state(cfg.get("t0", 0.0), x0, build_p0_sqrt(cfg, n, dtype, device), obs.obs_dim)
     # absent/null weights mean unmasked tempering noise
     w_raw = parse_literal(cfg.get("gamma_noise_weights"))
     w = torch.ones(n, dtype=dtype, device=device) if w_raw is None else torch.as_tensor(w_raw, dtype=dtype, device=device)

@@ -54,8 +54,14 @@ class ERK:
                 xi = x if incr is None else x + h * incr
             ks.append(rhs(t + tab.c[i] * h, xi, params))
         x_next = x + h * _weighted_sum(ks, tab.b_sol)
-        err = _weighted_sum(ks, tuple(e - s for e, s in zip(tab.b_err, tab.b_sol)))
-        eps = torch.abs(h * err)
+        # the local error is a difference of O(1) stage sums; below float64
+        # it is summed in float64, so that it rounds at its own magnitude
+        # (summed in the stages' precision it falls on the grid of their
+        # ulp and can be exactly 0, which makes the local-error covariance
+        # singular)
+        wide = ks if x.dtype == torch.float64 else [k.to(torch.float64) for k in ks]
+        err = _weighted_sum(wide, tuple(e - s for e, s in zip(tab.b_err, tab.b_sol)))
+        eps = torch.abs(h * err).to(x.dtype)
         return x_next, eps
 
 

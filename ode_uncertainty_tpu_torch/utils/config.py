@@ -1,5 +1,5 @@
-"""Experiment-config system (port of the parts of
-``ode_uncertainty_tpu/utils/config.py`` that the estimation entry point uses).
+"""Experiment-config system (port of ``ode_uncertainty_tpu/utils/config.py``
+without its JAX runtime pins and its diffrax alias).
 
 Configs are ``class_path``/``init_args`` object graphs plus flat script
 kwargs. Class paths resolve by their last component against this package's
@@ -31,12 +31,30 @@ def _sqrt_ekf_adapter(
     disable_cov_update: bool = False,
     cov_update=None,
 ):
-    """Accepts both this package's and the reference configs' ctor arg names."""
+    """Accepts both this package's and the reference configs' ctor arg names.
+    The static update builder is kept on the filter as ``static_cov_update``
+    (``run_filter``'s ``use_static_cov_fn`` branch reads its scale)."""
     from ode_uncertainty_tpu_torch.filters import DiagonalUpdate, SqrtEKF
 
-    del static_cov_update_fn_builder  # used only by the calibration scripts
     cu = cov_update if cov_update is not None else cov_update_fn_builder
-    return SqrtEKF(cov_update=cu or DiagonalUpdate(), disable_cov_update=disable_cov_update)
+    ekf = SqrtEKF(cov_update=cu or DiagonalUpdate(), disable_cov_update=disable_cov_update)
+    object.__setattr__(ekf, "static_cov_update", static_cov_update_fn_builder)
+    return ekf
+
+
+def _particle_filter_adapter(
+    cov_update_fn_builder=None,
+    static_cov_update_fn_builder=None,
+    num_particles: int = 100,
+    cov_update=None,
+):
+    """The particle filter under the reference configs' ctor arg names."""
+    from ode_uncertainty_tpu_torch.filters import DiagonalUpdate, ParticleFilter
+
+    cu = cov_update if cov_update is not None else cov_update_fn_builder
+    pf = ParticleFilter(cov_update=cu or DiagonalUpdate(), num_particles=num_particles)
+    object.__setattr__(pf, "static_cov_update", static_cov_update_fn_builder)
+    return pf
 
 
 def _hh_adapter(model: str = None, variant: str = "reduced-1", **kwargs):
@@ -67,6 +85,7 @@ def _registries() -> Dict[str, Callable]:
     for reg in (MODEL_REGISTRY, SOLVER_REGISTRY, FILTER_REGISTRY, COV_UPDATE_REGISTRY, SCHEDULE_REGISTRY):
         merged.update(reg)
     merged["SQRT_EKF"] = _sqrt_ekf_adapter
+    merged["ParticleFilter"] = _particle_filter_adapter
     merged["HodgkinHuxley"] = _hh_adapter
     merged["MultiCompartmentHodgkinHuxley"] = _mc_hh_adapter
     return merged
