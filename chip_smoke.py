@@ -185,14 +185,47 @@ Phases, each printing one JSON line with its own wall seconds:
                   against the float64 CPU at rtol 1e-9, the argmin level
                   equal; float32 and the NLLs' one-ulp conditioning
                   reported.
-                  The float64 CPU references of phases 18-22 run in a process
-                  of their own (REF_THREADS threads) from the build phase on.
+                  The float64 CPU references of phases 18-23 run in a process
+                  of their own (REF_THREADS threads) from the build phase on;
+                  so do the plain references of phases 9 and 13 (the spike
+                  rig's x0 and the plain values and gradients, in
+                  PLAIN_REF_GROUPS processes of one thread each).
                   Each of these phases prints its wall and per-step seconds.
- 23. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+ 23. c2_route     the estimation objective's route without a kernel (make_nll +
+                  autograd through the Kvaerno3 stage-solve rule at second
+                  order) on params/hodgkinhuxley2_c2_r4 (two compartments,
+                  n = 8, V of both observed, g_Na and g_K per compartment:
+                  4 rows), float64, through the entry points' batched_nll
+                  on the committed npz observations. One forward plus
+                  backward on 100 lanes of a C2_RIG_STEPS-step rig across the
+                  stimulus onset (t0 = C2_T0, rest state): 4 points at each
+                  of the 4 stages' gamma^1/2 held to the port's float64 CPU
+                  run of the same lanes (the reference process): NLL rtol
+                  1e-9, gradients (rows and d/d gamma^1/2) max relative
+                  error 1e-8; the gradient at the 4 points (first stage)
+                  held to central differences (step 1e-5 in every
+                  normalized coordinate and in gamma^1/2) of the same
+                  forward's neighbouring lanes (lane-normalized error
+                  <= 1e-4). Reported: the seconds per step of the forward
+                  (no autograd) and of forward plus backward at 1 and at 100
+                  lanes, and torch.cuda.max_memory_allocated of forward
+                  plus backward at 100 lanes at the horizons
+                  C2_MEMORY_HORIZONS with a checkpoint per observation
+                  interval (remat) and with none (chunk_size=1).
+ 24. c2_optimize  the port's `optimize` on params/hodgkinhuxley2_c2_r4 at full
+                  width (100 restarts from seed 224, 4 stages, float32, the
+                  committed npz observations), horizon cut to C2_OPT_STEPS
+                  steps and lbfgs_maxiter to C2_LBFGS_MAXITER: shapes, the
+                  route "make_nll + autograd", >= 95% of restarts finite, at
+                  every stage the best final NLL at most the best NLL at the
+                  points the stage started from (the same objective);
+                  wall seconds, dispatches per stage, lanes at the iteration
+                  limit and peak memory reported.
+ 25. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
                   Kvaerno3 step for n = 4, 7 and 8), the nvidia-smi line,
-                  then the device line. The solution paths launch none of
-                  them: no TPU kernel lies on them.
+                  then the device line. The solution paths and the c2
+                  phases launch none of them: no TPU kernel lies on them.
 
 The build phase reports each instantiation's registers, spills and ptxas
 time. Every phase line after the first names the card and its power limit
@@ -222,6 +255,8 @@ from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops import nll_kernel
 from ode_uncertainty_tpu_torch import run_parameter_estimation as rpe
 from ode_uncertainty_tpu_torch.run_parameter_estimation import build_rig, evaluate, gammas_of, optimize
+from ode_uncertainty_tpu_torch.utils.autograd_probe import nll_of, peak_memory, rig_at, step_times, synced
+from ode_uncertainty_tpu_torch.utils.autograd_probe import points as probe_points
 from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment, parse_literal
 from ode_uncertainty_tpu_torch.utils.cuda_build import build_library
 
@@ -698,35 +733,81 @@ def hh_spike_state(cfg) -> torch.Tensor:
     return sol["x"][-1]
 
 
-def hh_parity(name, make, gamma_sqrt, f32_limit=HH_P99_F32, lanes=HH_PARITY_LANES) -> dict:
-    """Kvaerno3 kernel (float64 and float32) against the float64 plain
-    version on ``lanes`` random lanes, half at ``gamma_sqrt`` and half at
-    gamma = 0: float64 rtol 1e-9, float32 p99 of the lane-normalized error
-    <= ``f32_limit`` (None: reported only)."""
+def cpu_time(fn):
+    """(fn(), its wall milliseconds) of host work."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def hh_parity_inputs(make, gamma_sqrt, lanes=HH_PARITY_LANES):
+    """hh_parity's wrappers (float64, float32), points and gamma^1/2 per lane."""
     rng = np.random.default_rng(SEED + 2)
     k64, k32 = make(torch.float64), make(torch.float32)
-    half = lanes // 2
     p = torch.as_tensor(rng.uniform(size=(lanes, k64.spec.num_opt)), device=DEVICE)
-    g_all = torch.as_tensor(np.repeat([gamma_sqrt, 0.0], half), device=DEVICE)
-    # the plain version on the host's CPU: three times faster than on the
-    # card there, where every one of its small operations is a launch
+    g_all = torch.as_tensor(np.repeat([gamma_sqrt, 0.0], lanes // 2), device=DEVICE)
+    return k64, k32, p, g_all
+
+
+def hh_parity_plain(make, gamma_sqrt, lanes=HH_PARITY_LANES, **_) -> dict:
+    """hh_parity's float64 plain version on the host's CPU (three times
+    faster than on the card, where every one of its small operations is a
+    launch)."""
+    k64, _, p, g_all = hh_parity_inputs(make, gamma_sqrt, lanes)
     phys64 = k64.physical(p).cpu()
-    plain64, plain_ms = sync_time(lambda: nll_kernel.nll_plain(k64.cm, phys64, k64.ys.cpu(), g_all.cpu()))
+    plain64, ms = cpu_time(lambda: nll_kernel.nll_plain(k64.cm, phys64, k64.ys.cpu(), g_all.cpu()))
+    return {"plain64": plain64, "ms": ms}
+
+
+def hh_parity(name, make, gamma_sqrt, ref: dict, f32_limit=HH_P99_F32, lanes=HH_PARITY_LANES) -> dict:
+    """Kvaerno3 kernel (float64 and float32) against the float64 plain
+    version (``ref``, from :func:`hh_parity_plain`) on ``lanes`` random
+    lanes, half at ``gamma_sqrt`` and half at gamma = 0: float64 rtol 1e-9,
+    float32 p99 of the lane-normalized error <= ``f32_limit`` (None:
+    reported only)."""
+    k64, k32, p, _ = hh_parity_inputs(make, gamma_sqrt, lanes)
+    half = lanes // 2
     out = {"rig": name, "n": k64.cm.n, "t0": k64.cm.t0, "steps": k64.cm.n_obs, "lanes": lanes,
-           "gamma_sqrt": gamma_sqrt, "plain_f64_cpu_ms": plain_ms}
+           "gamma_sqrt": gamma_sqrt, "plain_f64_cpu_ms": ref["ms"]}
     for label, kern, exact in (("f64", k64, True), ("f32", k32, False)):
         vals = torch.cat([kern.launch(kern.physical(p[sl]), g)
                           for sl, g in ((slice(0, half), gamma_sqrt), (slice(half, None), 0.0))])
         torch.cuda.synchronize()
-        out[f"kernel_{label}_vs_plain_f64"] = compare(vals, plain64, exact, f32_limit)
+        out[f"kernel_{label}_vs_plain_f64"] = compare(vals, ref["plain64"], exact, f32_limit)
     return out
 
 
-def hh_grad_parity(name, make, gamma_sqrt, lanes=HH_GRAD_LANES, f32_limit=HH_GRAD_P99_F32,
+def hh_grad_inputs(make, gamma_sqrt, lanes=HH_GRAD_LANES):
+    """hh_grad_parity's wrappers (float64, float32), points, cotangents and
+    gamma^1/2 per lane."""
+    rng = np.random.default_rng(SEED + 3)
+    k64, k32 = make(torch.float64), make(torch.float32)
+    p = torch.as_tensor(rng.uniform(size=(lanes, k64.spec.num_opt)), device=DEVICE)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=lanes), device=DEVICE)
+    gs = torch.as_tensor(np.repeat([gamma_sqrt, 0.0], lanes // 2), device=DEVICE)
+    return k64, k32, p, g, gs
+
+
+def hh_grad_plain(make, gamma_sqrt, lanes=HH_GRAD_LANES, f32_plain: bool = False, **_) -> dict:
+    """hh_grad_parity's float64 plain gradient on the host's CPU, and with
+    ``f32_plain`` the float32 one: [K + 1, B] each (rows, then d/d gamma^1/2)."""
+    k64, k32, p, g, gs = hh_grad_inputs(make, gamma_sqrt, lanes)
+    (dphys, dgamma), ms = cpu_time(
+        lambda: nll_kernel.nll_grad_plain(k64.cm, k64.physical(p).cpu(), k64.ys.cpu(), gs.cpu(), g.cpu()))
+    out = {"plain64": torch.cat([dphys, dgamma[None]]), "ms": ms}
+    if f32_plain:
+        (d32, dg32), ms32 = cpu_time(lambda: nll_kernel.nll_grad_plain(
+            k32.cm, k32.physical(p).cpu(), k32.ys.cpu(), gs.float().cpu(), g.float().cpu()))
+        out.update(plain32=torch.cat([d32, dg32[None]]), ms32=ms32)
+    return out
+
+
+def hh_grad_parity(name, make, gamma_sqrt, ref: dict, lanes=HH_GRAD_LANES, f32_limit=HH_GRAD_P99_F32,
                    f32_optimized_rows: bool = False, f32_plain: bool = False,
                    diverged_lanes: bool = False) -> dict:
     """Kvaerno3 nll_bwd (float64 and float32) against the float64 plain
-    gradient on the host's CPU, every parameter row and each lane's
+    gradient (``ref``, from :func:`hh_grad_plain` on the host's CPU),
+    every parameter row and each lane's
     d/d gamma^1/2, ``lanes`` random lanes half at ``gamma_sqrt`` and half at
     0 with a random cotangent (float32 p99 <= ``f32_limit``, None: reported);
     then a float32 launch over the optimized rows alone against the launch
@@ -742,16 +823,9 @@ def hh_grad_parity(name, make, gamma_sqrt, lanes=HH_GRAD_LANES, f32_limit=HH_GRA
     arithmetic itself reaches the limit on rows those rigs do not vary:
     the float32 plain version's distance to the float64 one is of the
     float32 kernel's size there."""
-    rng = np.random.default_rng(SEED + 3)
-    k64, k32 = make(torch.float64), make(torch.float32)
+    k64, k32, p, g, gs = hh_grad_inputs(make, gamma_sqrt, lanes)
     half = lanes // 2
-    p = torch.as_tensor(rng.uniform(size=(lanes, k64.spec.num_opt)), device=DEVICE)
-    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=lanes), device=DEVICE)
-    gs = torch.as_tensor(np.repeat([gamma_sqrt, 0.0], half), device=DEVICE)
-    phys64 = k64.physical(p).cpu()
-    (dphys, dgamma), plain_ms = sync_time(
-        lambda: nll_kernel.nll_grad_plain(k64.cm, phys64, k64.ys.cpu(), gs.cpu(), g.cpu()))
-    plain = torch.cat([dphys, dgamma[None]])
+    plain, plain_ms = ref["plain64"], ref["ms"]
     out = {"rig": name, "n": k64.cm.n, "t0": k64.cm.t0, "steps": k64.cm.n_obs, "lanes": lanes,
            "directions": k64.cm.k_params + 1, "gamma_sqrt": gamma_sqrt, "plain_f64_cpu_ms": plain_ms}
     halves = ((slice(0, half), gamma_sqrt), (slice(half, None), 0.0))
@@ -767,9 +841,7 @@ def hh_grad_parity(name, make, gamma_sqrt, lanes=HH_GRAD_LANES, f32_limit=HH_GRA
                                                   rows=held)
             out["kernel_f32_vs_plain_f64_all_rows_reported"] = compare_grads(got, plain, False, None)
         if not exact and f32_plain:
-            (d32, dg32), plain32_ms = sync_time(lambda: nll_kernel.nll_grad_plain(
-                k32.cm, k32.physical(p).cpu(), k32.ys.cpu(), gs.float().cpu(), g.float().cpu()))
-            plain32 = torch.cat([d32, dg32[None]])
+            plain32, plain32_ms = ref["plain32"], ref["ms32"]
             out["plain_f32_vs_plain_f64_all_rows_reported"] = compare_grads(plain32, plain, False, None)
             out["kernel_f32_vs_plain_f32_all_rows"] = compare_grads(got, plain32, False, f32_limit)
             out["plain_f32_cpu_ms"] = plain32_ms
@@ -782,6 +854,113 @@ def hh_grad_parity(name, make, gamma_sqrt, lanes=HH_GRAD_LANES, f32_limit=HH_GRA
                 raise AssertionError("nll_bwd over the optimized rows disagrees with the launch over every row")
             out["optimized_rows_launch"] = {"rows": rows, "equal_to_all_rows_launch": True}
     return out
+
+
+# The plain references of hh_parity and hh_grad_parity (~350 s of host work
+# at these rigs' depths on the card machine) run in PLAIN_REF_GROUPS
+# processes of their own from the build phase on, so that the card phases
+# do not wait for them; each group is a process of one thread.
+PLAIN_REF_DIR = OUT / "plain_refs"
+PLAIN_REF_GROUPS = (
+    ("spike_x0", "parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4"),
+    ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1"),
+    ("grad_onset_full", "grad_box_full"),
+)
+
+
+def hh_parity_rigs(x_spike=None) -> dict:
+    """key -> (rig name, wrapper maker, keyword arguments) of every rig that
+    hh_parity (``parity_*``) and hh_grad_parity (``grad_*``) hold to a plain
+    version; ``x_spike`` is the spike rigs' x0 (:func:`hh_spike_state`)."""
+    hh_cfg, hh_r1_cfg = hh_config(), hh_config("params/hodgkinhuxley6_r1", "hodgkinhuxley_r1.npz")
+    hh_full_cfg = hh_config(HH_FULL_EXPERIMENT, "hodgkinhuxley_full.npz")
+    full = dict(data="hodgkinhuxley_full.npz")
+    onset = lambda dt: hh_kernel(hh_cfg, dt, 9.9, HH_RIG_STEPS)
+    spike = lambda dt: hh_kernel(hh_cfg, dt, 23.5, HH_RIG_STEPS, x0=x_spike)
+    # the n = 7 and n = 8 units on onset rigs cut to HH_FULL_GRAD_RIG_STEPS
+    grad_full = dict(f32_optimized_rows=True, f32_plain=True)
+    return {
+        "parity_onset_r4": ("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state", onset, {}),
+        "parity_onset_full": ("HH full onset, t0 = 9.9, rest state, g_Na varied",
+                              lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS, optimized=("g_Na",),
+                                                   **full), {}),
+        # hodgkinhuxley7_full's seven-parameter box: the float32 plain
+        # version itself is ~4e-3 (p99) off the float64 one there, so float32
+        # is reported, not held; float64 is held at 1e-9 (64 lanes: an extra
+        # rig, kept short in the script's time)
+        "parity_box_full": ("HH full onset, t0 = 9.9, hodgkinhuxley7_full's 7 parameters varied",
+                            lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS, **full),
+                            dict(f32_limit=None, lanes=64)),
+        "parity_spike_r4": ("hodgkinhuxley1_r4 spike, t0 = 23.5", spike, {}),
+        "grad_onset_r4": ("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state", onset, {}),
+        "grad_spike_r4": ("hodgkinhuxley1_r4 spike, t0 = 23.5", spike, {}),
+        "grad_onset_r1": ("hodgkinhuxley6_r1's model onset, t0 = 9.9, rest state, g_Na varied",
+                          lambda dt: hh_kernel(hh_r1_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS, data="hodgkinhuxley_r1.npz",
+                                               optimized=("g_Na",)), grad_full),
+        "grad_onset_full": ("HH full onset, t0 = 9.9, rest state, g_Na varied",
+                            lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS, optimized=("g_Na",),
+                                                 **full), grad_full),
+        # hodgkinhuxley7_full's seven-parameter box: float32 reported, float64
+        # held (the float32 plain version is itself off there, see hh_parity);
+        # a lane at the box's edge (V_T near -86, gamma = 0) diverges within
+        # the rig's steps, its NLL and gradient non-finite on both sides
+        "grad_box_full": ("HH full onset, t0 = 9.9, hodgkinhuxley7_full's 7 parameters varied",
+                          lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS, **full),
+                          dict(f32_limit=None, f32_plain=True, diverged_lanes=True)),
+    }
+
+
+def save_atomically(obj, path: Path) -> None:
+    tmp = path.with_suffix(".tmp")
+    torch.save(obj, tmp)
+    tmp.replace(path)
+
+
+def plain_references(out_dir: Path, keys: list) -> None:
+    """Computes the plain references ``keys`` on the host's CPU, each saved
+    as ``<key>.pt`` in ``out_dir``; ``spike_x0`` is the spike rigs' x0
+    (the other groups wait for its file)."""
+    global DEVICE
+    DEVICE = "cpu"
+    torch.set_num_threads(1)
+    hh_gs0 = float(torch.sqrt(gammas_of(hh_config(), torch.float64)[0]))
+    x_spike = None
+    for key in keys:
+        if key == "spike_x0":
+            x, ms = cpu_time(lambda: hh_spike_state(hh_config()))
+            save_atomically({"x": x, "ms": ms}, out_dir / "spike_x0.pt")
+            continue
+        if "spike" in key and x_spike is None:
+            while not (out_dir / "spike_x0.pt").exists():
+                time.sleep(0.5)
+            x_spike = torch.load(out_dir / "spike_x0.pt")["x"]
+        _, make, kw = hh_parity_rigs(x_spike)[key]
+        plain = hh_parity_plain if key.startswith("parity") else hh_grad_plain
+        save_atomically(plain(make, hh_gs0, **kw), out_dir / f"{key}.pt")
+
+
+def start_plain_references() -> list:
+    PLAIN_REF_DIR.mkdir(exist_ok=True)
+    for stale in PLAIN_REF_DIR.glob("*"):
+        stale.unlink()
+    procs = []
+    for i, keys in enumerate(PLAIN_REF_GROUPS):
+        log = open(OUT / f"plain_references_{i}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--plain-references",
+                                       str(PLAIN_REF_DIR), *keys], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    return procs
+
+
+def plain_ref(procs: list, key: str) -> dict:
+    """The plain reference ``key``, waiting for the process of its group."""
+    path = PLAIN_REF_DIR / f"{key}.pt"
+    group = next(i for i, keys in enumerate(PLAIN_REF_GROUPS) if key in keys)
+    while not path.exists():
+        if procs[group].poll() is not None and not path.exists():
+            raise AssertionError(f"the plain reference process {group} ended without {key}: "
+                                 + (OUT / f"plain_references_{group}.log").read_text()[-4000:])
+        time.sleep(0.5)
+    return torch.load(path)
 
 
 def hh_bench_kernel(dtype):
@@ -885,6 +1064,7 @@ def solution_references(out_dir: Path) -> None:
     for key in CPU_JOBS:
         res, wall, steps = run_solution(key, "cpu", True)
         np.savez(out_dir / f"{key}.npz", **res, _wall_s=wall, _steps=steps)
+    np.savez(out_dir / "c2_route.npz", **c2_values_and_grads("cpu", held_only=True))
     (out_dir / "done").write_text("ok")
 
 
@@ -1049,9 +1229,206 @@ def solution_phases(refs: subprocess.Popen) -> None:
             raise AssertionError(f"calibration: card and CPU differ: {out}")
 
 
+# ---- multi-compartment Hodgkin-Huxley through make_nll + autograd (no NLL kernel) ----
+C2_EXPERIMENT = "params/hodgkinhuxley2_c2_r4"
+C2_DATA = HH_DATA / "hodgkinhuxley_c2_r4.npz"
+# The route runs eagerly: about 2.5 s a step forward and 4.7 s forward plus
+# backward on the card, at 1 lane as at 100 (launch-bound;
+# utils/autograd_probe.py on one H100), so the c2 phases run short horizons.
+C2_T0 = 9.9  # the running sum t += h reaches the stimulus onset (t = 10) at step 11
+C2_RIG_STEPS = 16
+C2_POINTS = 4
+C2_LANES = 100
+C2_FD_STEP = 1e-5
+C2_FD_TOL = 1e-4  # |autograd - differences| / (|differences| + 1)
+C2_TIMING_STEPS = 2
+C2_MEMORY_HORIZONS = (2, 6)
+C2_OPT_STEPS = 3  # c2_optimize's horizon: the experiment's is 10^4 steps
+C2_LBFGS_MAXITER = 2  # the experiment's is 200
+
+
+def c2_lanes(spec, gammas) -> tuple:
+    """([C2_LANES, P] normalized points, [C2_LANES] gamma^1/2) of c2_route:
+    C2_POINTS points near the generating parameters, each at every stage's
+    gamma^1/2 (point-major: the lanes held to the CPU), then each point at
+    the first stage's gamma^1/2 moved by +C2_FD_STEP and -C2_FD_STEP in each
+    normalized coordinate and then in gamma^1/2 (the central differences),
+    then random points at the first stage's gamma^1/2 up to C2_LANES."""
+    rng = np.random.default_rng(SEED + 13)
+    dim = spec.num_opt
+    base = np.clip(spec.defaults_norm_opt().cpu().numpy() + rng.uniform(-0.1, 0.1, (C2_POINTS, dim)), 0.0, 1.0)
+    gs = np.sqrt(np.asarray(gammas, np.float64))
+    shifts = np.repeat(np.eye(dim + 1), 2, axis=0) * np.tile([C2_FD_STEP, -C2_FD_STEP], dim + 1)[:, None]
+    fd = (base[:, None, :] + shifts[None, :, :dim]).reshape(-1, dim)
+    fd_g = (gs[0] + np.tile(shifts[:, dim], C2_POINTS))
+    extra = C2_LANES - len(gs) * C2_POINTS - len(fd)
+    p = np.concatenate([np.repeat(base, len(gs), axis=0), fd, rng.uniform(size=(extra, dim))])
+    g = np.concatenate([np.tile(gs, C2_POINTS), fd_g, np.full(extra, gs[0])])
+    return p, g
+
+
+def c2_values_and_grads(device: str, held_only: bool = False) -> dict:
+    """c2_route's NLLs and autograd gradients through the entry points'
+    batched_nll (one forward and one backward, timed) on every lane of
+    c2_lanes, or on the lanes held to the CPU alone."""
+    rig, cfg = rig_at(C2_EXPERIMENT, C2_RIG_STEPS, torch.float64, device, t0=C2_T0)
+    nll_b, on_kernels = rpe.batched_nll(rig, cfg, grad=True)
+    gammas = gammas_of(cfg, torch.float64).cpu().numpy()
+    p, g = c2_lanes(rig.spec, gammas)
+    if held_only:
+        held = len(gammas) * C2_POINTS
+        p, g = p[:held], g[:held]
+    q = torch.as_tensor(p, device=device).requires_grad_(True)
+    gg = torch.as_tensor(g, device=device).requires_grad_(True)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    vals = nll_b(q, gg[:, None, None])
+    sync()
+    t1 = time.perf_counter()
+    vals.sum().backward()
+    sync()
+    t2 = time.perf_counter()
+    return {"nll": vals.detach().cpu().numpy(), "dp": q.grad.cpu().numpy(), "dg": gg.grad.cpu().numpy(),
+            "gammas": gammas, "fwd_s": t1 - t0, "bwd_s": t2 - t1, "steps": rig.num_steps,
+            "on_kernels": on_kernels}
+
+
+def c2_phases(refs: subprocess.Popen) -> None:
+    """The c2_route and c2_optimize phases (see the module note)."""
+    with Phase("c2_route") as ph:
+        nll_kernel.reset_launches()
+        got = c2_values_and_grads(DEVICE)
+        launches = dict(nll_kernel.launches)
+        if got["on_kernels"] or any(launches.values()):
+            raise AssertionError(f"c2_route took the kernels' route: {launches}")
+        ref = reference(refs, "c2_route")
+        held = len(ref["nll"])
+        vals, grads = got["nll"], np.concatenate([got["dp"], got["dg"][:, None]], axis=1)
+        ref_grads = np.concatenate([ref["dp"], ref["dg"][:, None]], axis=1)
+        if not (np.isfinite(vals).all() and np.isfinite(grads).all() and np.isfinite(ref_grads).all()):
+            raise AssertionError("c2_route: non-finite NLL or gradient")
+        nll_rel = np.abs(vals[:held] - ref["nll"]) / np.abs(ref["nll"])
+        diff = np.abs(grads[:held] - ref_grads)
+        grad_rel = diff / np.where(ref_grads != 0, np.abs(ref_grads), np.abs(ref_grads).max())
+        # central differences of the card's own forward at each point (first stage)
+        stages, dim = len(ref["gammas"]), ref["dp"].shape[1]
+        fd_vals = vals[held:held + C2_POINTS * 2 * (dim + 1)].reshape(C2_POINTS, dim + 1, 2)
+        fd = (fd_vals[..., 0] - fd_vals[..., 1]) / (2.0 * C2_FD_STEP)
+        at_points = grads[:held:stages]
+        fd_err = np.abs(at_points - fd) / (np.abs(fd) + 1.0)
+        checks = {"nll_max_rel_err_vs_cpu_f64": float(nll_rel.max()), "nll_rtol": RTOL_F64,
+                  "grad_max_rel_err_vs_cpu_f64": float(grad_rel.max()), "grad_rtol": GRAD_RTOL_F64,
+                  "grad_vs_central_differences_max_lane_err": float(fd_err.max()), "fd_tol": C2_FD_TOL}
+        s = got["steps"]
+        ph.info.update(experiment=C2_EXPERIMENT, observations=str(C2_DATA.relative_to(ROOT)), t0=C2_T0, steps=s,
+                       lanes=len(vals), held_lanes=held, gammas=ref["gammas"].tolist(), fd_step=C2_FD_STEP,
+                       route="make_nll + autograd", launches=launches, **checks,
+                       nll_held=vals[:held].tolist(), grad_at_points=at_points.tolist(), central_differences=fd.tolist(),
+                       cpu_f64_fwd_and_bwd_s=float(ref["fwd_s"] + ref["bwd_s"]), cpu_f64_lanes=held,
+                       fwd_recording_s_per_step_100_lanes=got["fwd_s"] / s, bwd_s_per_step_100_lanes=got["bwd_s"] / s,
+                       fwd_and_bwd_s_per_step_100_lanes=(got["fwd_s"] + got["bwd_s"]) / s)
+        if not (nll_rel.max() <= RTOL_F64 and grad_rel.max() <= GRAD_RTOL_F64 and fd_err.max() <= C2_FD_TOL):
+            raise AssertionError(f"c2_route: card and references differ: {checks}")
+
+        # the eager route's time per step at 1 lane, and the forward
+        # without autograd at 100 lanes, at a cut horizon
+        gs0 = float(np.sqrt(ref["gammas"][0]))
+        rig_t = rig_at(C2_EXPERIMENT, C2_TIMING_STEPS, torch.float64, DEVICE, t0=C2_T0)[0]
+        one_lane = step_times(rig_t, 1, gs0, reps=1)
+        p100 = probe_points(rig_t, C2_LANES)
+        with torch.no_grad():
+            _, fwd100 = synced(lambda: nll_of(rig_t)(p100, rig_t.q_sqrt, torch.tensor(gs0, device=DEVICE,
+                                                                                       dtype=torch.float64)))
+        memory = []
+        for horizon in C2_MEMORY_HORIZONS:
+            rig_h = rig_at(C2_EXPERIMENT, horizon, torch.float64, DEVICE, t0=C2_T0)[0]
+            for label, kw in (("checkpoint per observation interval (remat)", {"remat": True}),
+                              ("none (chunk_size=1)", {"chunk_size": 1})):
+                memory.append({"steps": horizon, "lanes": C2_LANES, "checkpointing": label,
+                               **peak_memory(rig_h, C2_LANES, gs0, **kw)})
+        ph.info.update(timing_steps=C2_TIMING_STEPS, one_lane=one_lane, fwd_s_per_step_100_lanes=fwd100 / C2_TIMING_STEPS,
+                       peak_memory_fwd_and_bwd=memory)
+
+    c2_path = OUT / "c2_optimize.npz"
+    for stale in OUT.glob("c2_optimize.npz*"):
+        stale.unlink()
+    with Phase("c2_optimize") as ph:
+        raw = load_experiment(C2_EXPERIMENT)
+        h = raw["solver_builder"]["init_args"]["step_size"]
+        cfg = build_config(raw, {"device": DEVICE, "tN": raw["t0"] + (C2_OPT_STEPS - 0.5) * h, "y_path": str(C2_DATA),
+                                 "output": str(c2_path), "lbfgs_maxiter": C2_LBFGS_MAXITER, "resume": False})
+        starts: dict = {}
+        stage_grid = rpe.run_stage_grid
+
+        def recording_grid(out, p0, gammas, stage_fn, *args, **kwargs):
+            def recorded(p_norm, gamma, unit_key=None):
+                starts.setdefault(float(gamma), []).append(p_norm.detach().clone())
+                return stage_fn(p_norm, gamma, unit_key=unit_key)
+            return stage_grid(out, p0, gammas, recorded, *args, **kwargs)
+
+        rpe.run_stage_grid = recording_grid
+        try:
+            nll_kernel.reset_launches()
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = optimize(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+            launches = dict(nll_kernel.launches)
+        finally:
+            rpe.run_stage_grid = stage_grid
+        rig = build_rig(cfg, torch.float32, torch.device(DEVICE))
+        n_opt = rig.spec.num_opt
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, n_opt) or n_opt != 4:
+            raise AssertionError(f"c2 optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if res["route"] != "make_nll + autograd" or any(launches.values()):
+            raise AssertionError(f"c2 optimize took another route: {res['route']}, {launches}")
+        final_all = np.asarray(res["nll_optims"], np.float64)
+        finite = np.isfinite(final_all[:, -1])
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 c2 restarts end finite")
+        # the objective optimize built, at every stage's starting points and
+        # gamma^1/2 in one batch (one gamma^1/2 per lane)
+        nll_b = rpe.batched_nll(rig, cfg, grad=True)[0]
+        gams = res["gammas"].tolist()
+        p_start = [torch.cat(starts[float(np.float32(gam))]).to(device=DEVICE, dtype=torch.float32) for gam in gams]
+        g_start = torch.cat([torch.full((len(ps),), gam, dtype=torch.float32, device=DEVICE).sqrt()
+                             for ps, gam in zip(p_start, gams)])
+        with torch.no_grad():
+            start_all = nll_b(torch.cat(p_start), g_start[:, None, None]).double().cpu().numpy()
+        descent = []
+        for stage, gam in enumerate(gams):
+            start = start_all[stage * 100:(stage + 1) * 100]
+            col = final_all[:, stage]
+            best_start = float(np.min(np.where(np.isfinite(start), start, np.inf)))
+            best_final = float(np.min(np.where(np.isfinite(col), col, np.inf)))
+            descent.append({"stage": stage, "gamma": gam, "best_start_nll": best_start, "best_final_nll": best_final,
+                            "finite_start": int(np.isfinite(start).sum()), "finite_final": int(np.isfinite(col).sum())})
+            if not best_final <= best_start:
+                raise AssertionError(f"c2 optimize did not descend at stage {stage}: {descent[-1]}")
+        ph.info.update(experiment=C2_EXPERIMENT, route=res["route"], launches=launches, restarts=100, stages=4,
+                       dtype="float32", steps=rig.num_steps, cut_from_steps=10_000, lbfgs_maxiter=C2_LBFGS_MAXITER,
+                       optimized=list(rig.spec.opt_keys), optimize_wall_s=wall, peak_memory_mib=peak_mib,
+                       finite_final=int(finite.sum()), descent=descent,
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
+                       widest_per_stage=[u["widest"] for u in res["units"]],
+                       lanes_at_max_iter_per_stage=[u["lanes_at_max_iter"] for u in res["units"]],
+                       seconds_per_stage=[u["seconds"] for u in res["units"]],
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       nll_spread_final_stage=[float(np.nanmin(final_all[:, -1])), float(np.nanmax(final_all[:, -1]))],
+                       output=str(c2_path.relative_to(ROOT)))
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--solution-references"]:
         solution_references(Path(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--plain-references"]:
+        plain_references(Path(sys.argv[2]), sys.argv[3:])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU",
@@ -1077,15 +1454,17 @@ def main() -> int:
     # the CPU float64 references of the solution phases, in a process of
     # their own beside the card phases
     refs = start_solution_references()
+    plain_procs = start_plain_references()
     try:
-        return run_phases(refs, t_start)
+        return run_phases(refs, plain_procs, t_start)
     finally:
-        if refs.poll() is None:
-            refs.kill()
-        refs.wait()
+        for proc in (refs, *plain_procs):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def run_phases(refs: subprocess.Popen, t_start: float) -> int:
+def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int:
 
     obs_path, out_path = OUT / "lv2_observations.npz", OUT / "lv2_evaluate.npz"
     out_path.unlink(missing_ok=True)
@@ -1272,28 +1651,19 @@ def run_phases(refs: subprocess.Popen, t_start: float) -> int:
     hh_out.unlink(missing_ok=True)
     hh_cfg = hh_config(out_path=hh_out)
     hh_full_cfg = hh_config(HH_FULL_EXPERIMENT, "hodgkinhuxley_full.npz")
-    hh_r1_cfg = hh_config("params/hodgkinhuxley6_r1", "hodgkinhuxley_r1.npz")
     hh_gammas = gammas_of(hh_cfg, torch.float64)
     hh_gs0 = float(torch.sqrt(hh_gammas[0]))
 
     with Phase("hh_parity") as ph:
-        x_spike, solve_ms = sync_time(lambda: hh_spike_state(hh_cfg))
-        onset_r4 = hh_parity("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state",
-                             lambda dt: hh_kernel(hh_cfg, dt, 9.9, HH_RIG_STEPS), hh_gs0)
-        onset_full = hh_parity("HH full onset, t0 = 9.9, rest state, g_Na varied",
-                               lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS,
-                                                    data="hodgkinhuxley_full.npz", optimized=("g_Na",)), hh_gs0)
-        # hodgkinhuxley7_full's seven-parameter box: the float32 plain
-        # version itself is ~4e-3 (p99) off the float64 one there, so float32
-        # is reported, not held; float64 is held at 1e-9 (64 lanes: an extra
-        # rig, kept short in the script's time)
-        box_full = hh_parity("HH full onset, t0 = 9.9, hodgkinhuxley7_full's 7 parameters varied",
-                             lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_RIG_STEPS,
-                                                  data="hodgkinhuxley_full.npz"), hh_gs0, f32_limit=None, lanes=64)
-        spike_r4 = hh_parity("hodgkinhuxley1_r4 spike, t0 = 23.5",
-                             lambda dt: hh_kernel(hh_cfg, dt, 23.5, HH_RIG_STEPS, x0=x_spike), hh_gs0)
-        ph.info.update(onset_r4=onset_r4, onset_full=onset_full, box_full=box_full, spike_r4=spike_r4,
-                       spike_x0=x_spike.cpu().numpy().tolist(), spike_x0_solve_ms=solve_ms)
+        spike_ref = plain_ref(plain_procs, "spike_x0")
+        x_spike = spike_ref["x"]
+        rigs = hh_parity_rigs(x_spike)
+        hh_parities = {key[len("parity_"):]: hh_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
+                                                  **rigs[key][2])
+                  for key in ("parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4")}
+        onset_r4 = hh_parities["onset_r4"]
+        ph.info.update(**hh_parities, spike_x0=x_spike.cpu().numpy().tolist(), spike_x0_solve_ms=spike_ref["ms"],
+                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
 
     with Phase("hh_full_horizon") as ph:
         # the main path's rig at its full horizon: float32 kernel against the
@@ -1407,28 +1777,11 @@ def run_phases(refs: subprocess.Popen, t_start: float) -> int:
 
     # ---- Hodgkin-Huxley optimize through the Kvaerno3 nll_fwd and nll_bwd ----
     with Phase("hh_grad_parity") as ph:
-        onset = hh_grad_parity("hodgkinhuxley1_r4 onset, t0 = 9.9, rest state",
-                               lambda dt: hh_kernel(hh_cfg, dt, 9.9, HH_RIG_STEPS), hh_gs0)
-        spike = hh_grad_parity("hodgkinhuxley1_r4 spike, t0 = 23.5",
-                               lambda dt: hh_kernel(hh_cfg, dt, 23.5, HH_RIG_STEPS, x0=x_spike), hh_gs0)
-        # the n = 7 and n = 8 units on onset rigs cut to HH_FULL_GRAD_RIG_STEPS
-        onset_r1 = hh_grad_parity("hodgkinhuxley6_r1's model onset, t0 = 9.9, rest state, g_Na varied",
-                                  lambda dt: hh_kernel(hh_r1_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS,
-                                                       data="hodgkinhuxley_r1.npz", optimized=("g_Na",)), hh_gs0,
-                                  f32_optimized_rows=True, f32_plain=True)
-        onset_full = hh_grad_parity("HH full onset, t0 = 9.9, rest state, g_Na varied",
-                                    lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS,
-                                                         data="hodgkinhuxley_full.npz", optimized=("g_Na",)), hh_gs0,
-                                    f32_optimized_rows=True, f32_plain=True)
-        # hodgkinhuxley7_full's seven-parameter box: float32 reported, float64
-        # held (the float32 plain version is itself off there, see hh_parity);
-        # a lane at the box's edge (V_T near -86, gamma = 0) diverges within
-        # the rig's steps, its NLL and gradient non-finite on both sides
-        box_full = hh_grad_parity("HH full onset, t0 = 9.9, hodgkinhuxley7_full's 7 parameters varied",
-                                  lambda dt: hh_kernel(hh_full_cfg, dt, 9.9, HH_FULL_GRAD_RIG_STEPS,
-                                                       data="hodgkinhuxley_full.npz"), hh_gs0, f32_limit=None,
-                                  f32_plain=True, diverged_lanes=True)
-        ph.info.update(onset_r4=onset, spike_r4=spike, onset_r1=onset_r1, onset_full=onset_full, box_full=box_full)
+        hh_grads = {key[len("grad_"):]: hh_grad_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
+                                                    **rigs[key][2])
+                 for key in ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1", "grad_onset_full", "grad_box_full")}
+        onset = hh_grads["onset_r4"]
+        ph.info.update(hh_grads)
 
     with Phase("hh_grad_full_horizon") as ph:
         # the main path's rig at its full horizon, 8 points of evaluate's
@@ -1683,6 +2036,9 @@ def run_phases(refs: subprocess.Popen, t_start: float) -> int:
 
     # ---- probabilistic ODE solutions (no NLL kernel on these paths) ----
     solution_phases(refs)
+
+    # ---- multi-compartment HH through make_nll + autograd (no NLL kernel) ----
+    c2_phases(refs)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(CARD, flush=True)

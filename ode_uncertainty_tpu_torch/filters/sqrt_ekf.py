@@ -106,9 +106,10 @@ class SqrtEKF:
             x_next_f, eps_f, p_pred = linearized_step(solver, rhs, params, state.t, state.x, state.P_sqrt)
 
             # Guard on the effective noise gamma*Q, not Q alone: at the final
-            # tempering stage gamma == 0 and the QR sum is skipped.
+            # tempering stage gamma == 0 and the QR sum is skipped. Lane by
+            # lane where Q has one per lane (parameter_sensitivity).
             qg = gamma_sqrt * q_sqrt
-            q_active = torch.any(torch.abs(qg) >= _Q_ACTIVE_THRESHOLD)
+            q_active = torch.any(torch.abs(qg) >= _Q_ACTIVE_THRESHOLD, dim=(-2, -1), keepdim=True)
             if disable:
                 p_new = torch.where(q_active, sqrt_sum(p_pred, qg), p_pred)
             else:

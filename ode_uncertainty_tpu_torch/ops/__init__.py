@@ -4,7 +4,7 @@ linearization, observation alignment, normalization. The NLL kernel lives in
 
 from ode_uncertainty_tpu_torch.ops.align import build_observation_maps, isin_tolerance, sync_times
 from ode_uncertainty_tpu_torch.ops.chol_update import chol_update
-from ode_uncertainty_tpu_torch.ops.linearize import push_sqrt
+from ode_uncertainty_tpu_torch.ops.linearize import pull_sqrt, push_sqrt, value_and_jacfwd
 from ode_uncertainty_tpu_torch.ops.normalize import clip01, inv_normalize, normalize
 from ode_uncertainty_tpu_torch.ops.sqrt_linalg import (
     cho_solve_sqrt,
@@ -22,7 +22,9 @@ __all__ = [
     "chol_update",
     "isin_tolerance",
     "sync_times",
+    "pull_sqrt",
     "push_sqrt",
+    "value_and_jacfwd",
     "clip01",
     "inv_normalize",
     "normalize",

@@ -156,8 +156,8 @@ def no_grad_kernel(model_name: str, solver_name: str, n: int) -> str:
     return (
         f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the gradient kernel is "
         "instantiated for Lotka-Volterra with RKF45 and for the single-compartment Hodgkin-Huxley variants "
-        "with Kvaerno3 (n = 4, 7, 8); the route without a kernel (make_nll + autograd) needs the "
-        "second-order stage-solve rule, StageSolve.backward, which is not ported"
+        "with Kvaerno3 (n = 4, 7, 8); the entry points take make_nll + autograd (inference/nll.py) "
+        "for every other configuration"
     )
 
 

@@ -8,18 +8,16 @@
   evaluate — NLL landscape over a parameter grid per tempering stage; writes
              ``param_evals``, ``nll_evals``, ``gammas`` and ``timings``.
 
-When ``supports()`` holds and ``initial_state_parametrized`` is off, the NLL
-goes through the CUDA kernels of ``ops/nll_kernel.py`` (``nll_fwd``, and for
-``optimize``'s gradient ``nll_bwd``), or their plain versions on CPU tensors;
-else through the port's ``make_nll`` (with autograd for the gradient), which
-on the CPU runs about ten times slower than the plain versions (its
-linearization goes through ``torch.func.jvp``). Both routes advance the
-step time as the running sum ``t += h`` in the working type, as the JAX
-CLI's XLA ``make_nll`` does. ``parameter_sensitivity`` is not ported and
-raises. ``optimize`` with the Kvaerno3 solver runs on the kernels' route
-only (the single-compartment Hodgkin-Huxley variants, reduced-4, reduced-1
-and full) and raises elsewhere: ``make_nll`` + autograd would need the
-second-order stage-solve rule, which is not ported. Results go to the
+When ``supports()`` holds and neither ``initial_state_parametrized`` nor
+``parameter_sensitivity`` is on, the NLL goes through the CUDA kernels of
+``ops/nll_kernel.py`` (``nll_fwd``, and for ``optimize``'s gradient
+``nll_bwd``), or their plain versions on CPU tensors; else through the
+port's ``make_nll`` (with autograd for the gradient, through the Kvaerno3
+stage-solve rule at second order for the implicit step), which on the CPU
+runs about ten times slower than the plain versions (its linearization goes
+through ``torch.func.jvp``). Both routes advance the step time as the
+running sum ``t += h`` in the working type, as the JAX CLI's XLA
+``make_nll`` does. The result records the route taken. Results go to the
 ``output`` path: H5, or ``.npz`` for a path with that suffix.
 
 Usage:
@@ -31,6 +29,9 @@ Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/hodgkinhuxley7_full \\
       --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_full.npz [--set output=out.npz]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/hodgkinhuxley2_c2_r4 \\
+      --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_c2_r4.npz [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
@@ -54,7 +55,6 @@ from ode_uncertainty_tpu_torch.inference import (
     make_stage_optimizer_host,
 )
 from ode_uncertainty_tpu_torch.ops.nll_kernel import make_nll_cuda, supports
-from ode_uncertainty_tpu_torch.solvers import Kvaerno3
 from ode_uncertainty_tpu_torch.utils.carry import Rig
 from ode_uncertainty_tpu_torch.utils.checkpoint import run_stage_grid
 from ode_uncertainty_tpu_torch.utils.config import apply_runtime_config, config_cli, parse_literal
@@ -100,16 +100,13 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
     stimulus on or off one step apart).
 
     ``initial_state_parametrized`` builds each lane's initial state from its
-    parameters, which the kernels (one x0 for every lane) do not; it takes
-    make_nll. ``parameter_sensitivity`` (reference ``inference/nll.py:92-106``)
-    is not ported on either route and raises."""
-    if cfg.get("parameter_sensitivity", False):
-        raise NotImplementedError(
-            "parameter_sensitivity=true is not ported yet (the sensitivity-weighted process noise of "
-            "the reference's inference/nll.py:92-106); run with parameter_sensitivity=false"
-        )
+    parameters and ``parameter_sensitivity`` (reference
+    ``inference/nll.py:92-106``) weights the process noise per lane by the
+    step's parameter Jacobian; the kernels (one x0 and one q_sqrt for every
+    lane) compute neither, so either flag takes make_nll."""
     init_param = bool(cfg.get("initial_state_parametrized", False))
-    if not init_param and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad):
+    sensitivity = bool(cfg.get("parameter_sensitivity", False))
+    if not (init_param or sensitivity) and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad):
         return make_nll_cuda(
             rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt,
             accumulate_time=True,
@@ -124,6 +121,7 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
         rig.num_steps,
         x0_raw=rig.x0_raw,
         initial_state_parametrized=init_param,
+        parameter_sensitivity=sensitivity,
     )
     return (lambda p, gamma_sqrt: nll(p, rig.q_sqrt, gamma_sqrt)), False
 
@@ -154,18 +152,6 @@ def optimize(cfg) -> dict:
             "use optimizer_mode=host"
         )
     rig = build_rig(cfg, dtype, device)
-    if isinstance(rig.solver, Kvaerno3) and (
-        cfg.get("initial_state_parametrized", False)
-        or not supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=True)
-    ):
-        # the route without a kernel would reach StageSolve.backward
-        raise NotImplementedError(
-            f"optimize with the Kvaerno3 (implicit) solver runs on the NLL kernels only, and they do not "
-            f"cover {rig.model.name} (n = {rig.model.state_size}) here: the Kvaerno3 kernels are instantiated "
-            "for single-compartment Hodgkin-Huxley (reduced-4, reduced-1, full) with disable_cov_update=True, "
-            "a uniform observation grid and initial_state_parametrized=false. Missing: StageSolve.backward "
-            "(the second-order stage-solve rule) for make_nll + autograd; evaluate runs on this configuration"
-        )
     spec = rig.spec
     gammas = gammas_of(cfg, dtype)
     p0 = initial_restarts(cfg, spec, dtype)

@@ -10,14 +10,20 @@ The stage solve carries the implicit-function rule of the JAX package's
 ``custom_jvp`` (``_make_stage_solver``): the tangent of a stage solution is
 ``dz = (I - h*gamma*J(z*))^-1 dG`` with ``G = known + h*gamma*f(t_i, z*, p)``
 at the solution z*, not the tangent of the Newton loop. Here it is a
-``torch.autograd.Function`` with a ``jvp`` rule, so ``torch.func.jvp`` (the
-square-root EKF's linearization, ``ops/linearize.py``) applies it. Only the
-first order is ported: reverse mode through the rule (the gradient of a
-linearization, which the NLL gradient of an implicit step needs) raises
-``NotImplementedError``; the NLL gradient of an implicit step comes from the
-Kvaerno3 NLL-gradient kernel and its plain version (``ops/nll_kernel.py``),
-which apply the rule's derivative directly. ``remat_stage_inverse`` is the JAX package's
-TPU residual-memory knob; it is accepted and ignored.
+``torch.autograd.Function`` with both rules:
+
+  * ``jvp``, the rule itself, which ``torch.func.jvp`` (the square-root
+    EKF's linearization, ``ops/linearize.py``) applies. It is built from
+    differentiable operations at z*, so autograd differentiates its output
+    in reverse mode: the second order that the gradient of a linearization
+    (``make_nll``'s ``push_sqrt``) needs, with z* itself differentiated by
+    ``backward``, as JAX differentiates the rule;
+  * ``backward``, its transpose (the first order: the VJP of a step,
+    ``pull_sqrt``, and the path from z* in the second order).
+
+The Kvaerno3 NLL-gradient kernel and its plain version (``ops/nll_kernel.py``)
+apply the rule's derivative directly. ``remat_stage_inverse`` is the JAX
+package's TPU residual-memory knob; it is accepted and ignored.
 
 Tableau: Kvaerno (2004) ESDIRK 3(2), stiffly accurate.
 """
@@ -77,34 +83,56 @@ class StageSolve(torch.autograd.Function):
         f_flat, _, keys, t_i, known, _, _, h_gamma, *pvals = inputs
         ctx.f_flat, ctx.keys = f_flat, keys
         ctx.save_for_forward(t_i, known, h_gamma, output, *pvals)
+        ctx.save_for_backward(t_i, known, h_gamma, output, *pvals)
 
     @staticmethod
     def jvp(ctx, _f, _iters, _keys, dt_i, dknown, _dz0, _dminv, dh_gamma, *dpvals):
         """dz = (I - h_gamma*J(z*))^-1 dG, dG the tangent of
-        known + h_gamma*f(t_i, z*, p) with z* held fixed."""
+        known + h_gamma*f(t_i, z*, p) with z* held fixed. Built from
+        differentiable operations at z*, so reverse mode through it (the
+        gradient of a linearization) reaches z* through :meth:`backward`."""
         t_i, known, h_gamma, z, *pvals = ctx.saved_tensors
         f, keys = ctx.f_flat, ctx.keys
-        params = dict(zip(keys, pvals))
-        n = z.shape[-1]
-        eye = torch.eye(n, dtype=z.dtype, device=z.device)
-        minv_sol = inv_small(eye - h_gamma * jacobian(lambda zz: f(t_i, zz, params), z))
-
-        def g(ti_, known_, hg_, *pv):
-            return known_ + hg_ * f(ti_, z, dict(zip(keys, pv)))
-
         primals = (t_i, known, h_gamma, *pvals)
         tangents = [torch.zeros_like(x) if dx is None else dx
                     for x, dx in zip(primals, (dt_i, dknown, dh_gamma, *dpvals))]
-        _, dg = torch.func.jvp(g, primals, tuple(tangents))
-        return _matvec(minv_sol, dg)
+        _, dg = torch.func.jvp(_g_of(f, keys, z), primals, tuple(tangents))
+        return _matvec(_minv_at(f, keys, t_i, z, h_gamma, pvals), dg)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "reverse mode through the Kvaerno3 stage-solve rule (the gradient of an implicit "
-            "step's linearization) is not ported yet: the NLL gradient of an implicit step goes "
-            "through the Kvaerno3 NLL-gradient kernel (ops/nll_kernel.py) and its plain version"
-        )
+    def backward(ctx, dz):
+        """The transpose of :meth:`jvp`: w = (I - h_gamma*J(z*))^-T dz, pulled
+        back through G = known + h_gamma*f(t_i, z*, p) at z* held fixed."""
+        t_i, known, h_gamma, z, *pvals = ctx.saved_tensors
+        f, keys = ctx.f_flat, ctx.keys
+        minv_sol = _minv_at(f, keys, t_i, z, h_gamma, pvals)
+        w = (minv_sol.transpose(-1, -2) @ dz[..., None])[..., 0]
+        primals = (t_i, known, h_gamma, *pvals)
+        wanted = [ctx.needs_input_grad[i] for i in (3, 4, 7, *range(8, 8 + len(pvals)))]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(need) for x, need in zip(primals, wanted)]
+            g = _g_of(f, keys, z.detach())(*leaves)
+            needed = [x for x in leaves if x.requires_grad]
+            grads = iter(torch.autograd.grad(g, needed, w, allow_unused=True) if needed else ())
+        d_t, d_known, d_hg, *d_p = [next(grads) if need else None for need in wanted]
+        return None, None, None, d_t, d_known, None, None, d_hg, *d_p
+
+
+def _g_of(f, keys, z):
+    """G(t_i, known, h_gamma, *p) = known + h_gamma*f(t_i, z, p) at a fixed z."""
+
+    def g(ti_, known_, hg_, *pv):
+        return known_ + hg_ * f(ti_, z, dict(zip(keys, pv)))
+
+    return g
+
+
+def _minv_at(f, keys, t_i, z, h_gamma, pvals):
+    """(I - h_gamma*J(z))^-1 with J the Jacobian of f(t_i, ., p) at z."""
+    params = dict(zip(keys, pvals))
+    n = z.shape[-1]
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    return inv_small(eye - h_gamma * jacobian(lambda zz: f(t_i, zz, params), z))
 
 
 @dataclasses.dataclass(frozen=True)

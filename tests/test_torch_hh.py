@@ -5,9 +5,9 @@ Models: the right-hand sides, their Jacobians (forward mode on both sides),
 the steady-state initial values and the stimulus at its edges, for the three
 single-compartment variants and the multi-compartment coupling, and the
 config adapters; float64 rtol 1e-12. ``inv_small`` and one Kvaerno3 step
-(values, error estimate, and the first-order JVP through the stage-solve
-rule against ``jax.jvp`` of the reference, which applies its
-``custom_jvp``): float64 rtol 1e-12, on HH reduced-4 and full and on stiff
+(values, error estimate, the first-order JVP through the stage-solve rule
+against ``jax.jvp`` of the reference, which applies its ``custom_jvp``, and
+reverse mode through the rule against ``jax.grad``): float64 rtol 1e-12, on HH reduced-4 and full and on stiff
 van der Pol (damping 50, h = 0.05). Inputs are made with numpy from a seed.
 """
 
@@ -187,10 +187,16 @@ def test_kvaerno3_step_takes_a_batch_and_solves_stiff_problems():
 
 
 def test_kvaerno3_rule_has_no_second_order_yet():
-    _, tmod, h, t, y = _step_case("reduced-4")
+    # reverse mode through the stage-solve rule (StageSolve.backward, its
+    # transpose) against jax.grad through the reference's custom_jvp
+    jmod, tmod, h, t, y = _step_case("reduced-4")
     sol = ts.kvaerno3(h)
     g_na = tmod.params["g_Na"].clone().requires_grad_(True)
     params = {**tmod.params, "g_Na": g_na}
     x_next, _ = sol.step(tmod.rhs, params, torch.tensor(t, dtype=F64), torch.tensor(y))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        x_next.sum().backward()
+    x_next.sum().backward()
+    jsol, jt = js.kvaerno3(h), jnp.asarray(t, jnp.float64)
+    ref = jax.grad(lambda g: jnp.sum(jsol.step(jmod.rhs, {**jmod.params, "g_Na": g}, jt, jnp.asarray(y))[0]))(
+        jnp.asarray(jmod.params["g_Na"], jnp.float64))
+    assert float(g_na.grad) != 0.0
+    np.testing.assert_allclose(g_na.grad.numpy(), np.asarray(ref), **TOL)

@@ -3,10 +3,12 @@ kernel's route: its plain version on the CPU) against the JAX CLI, the
 committed npz copies of the Hodgkin-Huxley observation files, and
 ``optimize`` on Kvaerno3 experiments: it runs on the kernels' route for
 the single-compartment variants (reduced-4, reduced-1 and full: their
-gradient units are instantiated) and raises, before any NLL is built,
-where no kernel covers the configuration (multi-compartment HH,
-``initial_state_parametrized``), never falling through to ``make_nll`` +
-autograd (which would need the second-order stage-solve rule).
+gradient units are instantiated), and through ``make_nll`` + autograd
+(the stage-solve rule at second order) where no kernel covers the
+configuration: multi-compartment HH (params/hodgkinhuxley2_c2_r4, n = 8;
+params/hodgkinhuxley6_c2_r1, n = 14) and ``initial_state_parametrized``
+(HH full), at one step, one stage and one L-BFGS iteration (the eager
+route costs a few seconds a step on the CPU).
 
 Both CLIs run float64 at a cut horizon (``tN=0.3``, 30 steps, before the
 stimulus starts at t = 10, so the two routes' time rules agree) on the
@@ -63,7 +65,8 @@ def test_hh_evaluate_cli_matches_jax_cli(tmp_path):
         np.testing.assert_allclose(got["nll_evals"][()], ref["nll_evals"][()], rtol=1e-9, atol=0.0)
 
 
-@pytest.mark.parametrize("name", ["hodgkinhuxley_r4", "hodgkinhuxley_r1", "hodgkinhuxley_full"])
+@pytest.mark.parametrize("name", ["hodgkinhuxley_r4", "hodgkinhuxley_r1", "hodgkinhuxley_full",
+                                  "hodgkinhuxley_c2_r4", "hodgkinhuxley_c2_r1"])
 def test_npz_copies_equal_the_observation_files(name):
     with h5py.File(REPO / "results" / "noise_gt" / f"{name}.h5", "r") as ref, \
             np.load(DATA / f"{name}.npz", allow_pickle=False) as got:
@@ -95,28 +98,54 @@ def _no_make_nll(monkeypatch):
     monkeypatch.setattr(rpe, "make_nll", refuse)
 
 
+def _optimize_through_make_nll(tmp_path, monkeypatch, experiment, data, **overrides):
+    """optimize at one step, one restart, one stage and one iteration with
+    the kernels refused; returns the result and make_nll's keyword
+    arguments."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("optimize took the kernels' route")
+
+    monkeypatch.setattr(rpe, "make_nll_cuda", no_kernel)
+    calls = []
+    real = rpe.make_nll
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(rpe, "make_nll", spy)
+    cfg = build_config(load_experiment(experiment),
+                       {"device": "cpu", "tN": 0.01, "num_random_runs": 0, "num_tempering_stages": 1,
+                        "lbfgs_maxiter": 1, "y_path": str(DATA / data), "output": str(tmp_path / "out.npz"),
+                        **overrides})
+    res = rpe.optimize(cfg)
+    assert res["route"] == "make_nll + autograd" and len(calls) == 1
+    n_opt = sum(int(np.prod(np.shape(cfg["ode_builder"].params[k])) or 1)
+                for k, on in cfg["params_optimized"].items() if on)
+    assert res["params_optims"].shape == (1, 1, n_opt)
+    assert np.isfinite(res["nll_optims"]).all() and np.isfinite(res["params_optims"]).all()
+    assert (tmp_path / "out.npz").exists()
+    return res, calls[0]
+
+
 def test_optimize_on_kvaerno3_raises(tmp_path, monkeypatch):
     # HH full with initial_state_parametrized: each lane's initial state
-    # comes from its parameters, which the kernels do not compute, and the
-    # route without them needs StageSolve.backward
-    _no_make_nll(monkeypatch)
-    cfg = build_config(load_experiment("params/hodgkinhuxley7_full"),
-                       {"device": "cpu", "tN": 0.05, "initial_state_parametrized": True,
-                        "output": str(tmp_path / "out.npz")})
-    with pytest.raises(NotImplementedError, match="Missing: StageSolve.backward"):
-        rpe.optimize(cfg)
-    assert not (tmp_path / "out.npz").exists()
+    # comes from its parameters, which the kernels do not compute, so the
+    # route is make_nll + autograd
+    _, kw = _optimize_through_make_nll(tmp_path, monkeypatch, "params/hodgkinhuxley7_full",
+                                       "hodgkinhuxley_full.npz", initial_state_parametrized=True)
+    assert kw["initial_state_parametrized"] is True
 
 
-@pytest.mark.parametrize("experiment", ["params/hodgkinhuxley2_c2_r4"])
+@pytest.mark.parametrize("experiment", ["params/hodgkinhuxley2_c2_r4", "params/hodgkinhuxley6_c2_r1"])
 def test_optimize_on_kvaerno3_without_a_gradient_unit_raises(tmp_path, monkeypatch, experiment):
-    # multi-compartment HH: no kernel covers it
-    _no_make_nll(monkeypatch)
-    cfg = build_config(load_experiment(experiment),
-                       {"device": "cpu", "tN": 0.05, "output": str(tmp_path / "out.npz")})
-    with pytest.raises(NotImplementedError, match="do not cover .*Missing: StageSolve.backward"):
-        rpe.optimize(cfg)
-    assert not (tmp_path / "out.npz").exists()
+    # multi-compartment HH (n = 8 and n = 14, per-compartment parameters):
+    # no kernel covers it, so the route is make_nll + autograd
+    data = {"params/hodgkinhuxley2_c2_r4": "hodgkinhuxley_c2_r4.npz",
+            "params/hodgkinhuxley6_c2_r1": "hodgkinhuxley_c2_r1.npz"}[experiment]
+    res, kw = _optimize_through_make_nll(tmp_path, monkeypatch, experiment, data)
+    assert kw["initial_state_parametrized"] is False
+    assert res["params_optims"].shape[-1] == {"params/hodgkinhuxley2_c2_r4": 4, "params/hodgkinhuxley6_c2_r1": 12}[experiment]
 
 
 def _optimize_on_the_kernels_route(tmp_path, monkeypatch, experiment, data):

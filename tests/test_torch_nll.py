@@ -1,5 +1,5 @@
 """Parity of the PyTorch port's tempered NLL with the JAX package: the
-uniform-grid ``make_nll``, the plain version of the nll_fwd kernel
+uniform-grid ``make_nll`` (and its general loop on an irregular grid), the plain version of the nll_fwd kernel
 (``ops/nll_kernel.py``) against JAX's ``make_nll_tiles`` and ``make_nll``,
 the kernel wrapper's CPU route, ``supports``, ``utils/carry.py`` and
 ``make_nll_landscape``.
@@ -9,6 +9,8 @@ tests/test_pallas_ekf.py, with observations made from a numpy seed.
 Tolerances: float64 rtol 1e-9; float32 rtol 2e-4 / atol 1e-4 (those of
 tests/test_pallas_ekf.py:165).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -207,8 +209,16 @@ def test_supports_rules():
     with pytest.raises(ValueError, match="not covered"):
         nll_kernel.make_nll_cuda(trig.model, trig.solver, TEKF(), trig.spec, trig.obs,
                                  trig.state0, trig.num_steps, trig.q_sqrt)
-    with pytest.raises(NotImplementedError):
-        t_make_nll(trig.model, trig.solver, trig.ekf, trig.spec, irregular, trig.state0, trig.num_steps)
+    # the port's make_nll takes its general loop there, as JAX's does
+    jrig, _ = _rigs("float64", 2)
+    j_irregular = dataclasses.replace(jrig[4], flags=jnp.asarray(flags.numpy()))
+    p = _points()
+    # kept in the cache: _jax_nll caches its jit by the rig's id
+    j_rig = _CACHE.setdefault("irregular_jrig", (*jrig[:4], j_irregular, *jrig[5:]))
+    ref = _jax_nll(j_rig, "float64", p, 0.1)
+    got = t_make_nll(trig.model, trig.solver, trig.ekf, trig.spec, irregular, trig.state0, trig.num_steps)(
+        torch.as_tensor(p), trig.q_sqrt, torch.tensor(0.1 ** 0.5, dtype=torch.float64))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL["float64"])
 
 
 @pytest.mark.parametrize("route", ["make_nll", "kernel"])
