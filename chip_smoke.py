@@ -6,20 +6,26 @@ Phases, each printing one JSON line with its own wall seconds:
 
   1. device       nvidia-smi name and power limit; fails without CUDA.
   2. build        nvcc builds csrc/*.cu into build/ (one nvcc per source, in
-                  parallel, then a link; timed).
-  3. parity       the nll_fwd kernel against its plain PyTorch version on the
-                  card, at the full 2000-step horizon, for gamma^1/2 = 0.1 and
+                  parallel, then a link; timed). Before it the observations
+                  of phase 5 are synthesized (phase observations), and the
+                  processes of the LV plain references (phases 3 and 4)
+                  start, to run beside the build.
+  3. parity       the nll_fwd kernel against its plain PyTorch version (run in
+                  float64 on the host's CPU, in PLAIN_REF_GROUPS processes, on
+                  the same inputs) at the full 2000-step horizon, for
+                  gamma^1/2 = 0.1 and
                   gamma = 0, on the params/lotkavolterra2 rig (L = 1) and the
                   bench.py LV rig (L = 2): float64 kernel vs float64 plain
                   (rtol 1e-9) and float32 kernel vs float64 plain (p99 of the
                   lane-normalized error |k - p| / (|p| + 1) <= 2e-4). Lanes that
                   are not finite must coincide.
   4. grad parity  the nll_bwd kernel against its plain version (autograd
-                  through the plain forward) on 256 lanes, half at gamma^1/2 =
-                  0.1 and half at 0, every parameter row and each lane's
-                  d/d gamma^1/2: the lotkavolterra2 rig at its full 2000 steps,
-                  the bench.py LV rig cut to 600 steps (the plain gradient takes
-                  ~45 s per 2000 steps on the card). float64 kernel vs float64
+                  through the plain forward, on the host's CPU as in phase 3)
+                  on 256 lanes, half at gamma^1/2 = 0.1 and half at 0, every
+                  parameter row and each lane's d/d gamma^1/2: the
+                  lotkavolterra2 rig at its full 2000 steps, the bench.py LV
+                  rig cut to 600 steps (the plain gradient takes ~45 s per
+                  2000 steps on the card). float64 kernel vs float64
                   plain: max relative error <= 1e-8 (an element whose plain value
                   is 0 relative to the largest); float32 kernel vs float64
                   plain: p99 of the lane-normalized error <= 5e-3 (the gradient
@@ -152,7 +158,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   dispatch on its 7 rows (float32 and float64) and at
                   bench.py's hh_full shape (B = 512, 11 rows, float32),
                   median of 3, each beside its bound and its plain version
-                  at 20 steps.
+                  at HH_N8_PLAIN_TIMING_STEPS steps.
  18. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
                   (Dopri65) and noise_gt/lotkavolterra (Kvaerno3, noise of
                   variance 0.1 from a torch.Generator on the card), cut to
@@ -221,12 +227,54 @@ Phases, each printing one JSON line with its own wall seconds:
                   points the stage started from (the same objective);
                   wall seconds, dispatches per stage, lanes at the iteration
                   limit and peak memory reported.
- 25. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+ 25. device_optimize  the port's `optimize --set optimizer_mode=device` (the
+                  device L-BFGS, projected Armijo, in segments) on
+                  params/lotkavolterra2 at full size (100 restarts, 4 stages,
+                  2000 steps, float32, lbfgs_maxiter 200) on the synthesized
+                  observations, the counts set to 0 just before: shapes, both
+                  kernels launched (one nll_fwd and one nll_bwd a dispatch),
+                  the route and mode, >= 95% of restarts finite. Per stage:
+                  wall seconds, dispatches, the widest, lanes at the
+                  iteration limit, the kernels' seconds and share (CUDA events
+                  around each launch). The best NLL and optimum are reported
+                  beside the host optimize phase's, not held: the Armijo
+                  search is another optimizer than the host's strong Wolfe.
+ 26. device_parity  the device stage optimizer over the entry points'
+                  batched_nll on params/lotkavolterra2 cut to
+                  DEVICE_PARITY_STEPS steps, float64, 8 restarts, the first
+                  stage's gamma and 0: the card (kernels) against the same
+                  run on the host's CPU (plain versions, the device reference
+                  process): iterations and evaluations equal in every lane, x
+                  within 1e-8 (normalized box), f rtol 1e-9.
+ 27. baseline     the filter-free baseline (make_baseline_nll, autograd through
+                  the eager solve; no kernel) on params_baseline/lotkavolterra2:
+                  `optimize` at full width (100 restarts, 2000 RKF45 steps,
+                  float32) with lbfgs_maxiter cut to BASELINE_LBFGS_MAXITER
+                  (0: the timed value-and-gradient dispatch at 100 lanes,
+                  lbfgs_box's initial evaluation; >= 95% finite) and
+                  `evaluate` on its 50 x 50 grid at the full horizon (one
+                  batch, eval_batch BASELINE_EVAL_BATCH); float64 card
+                  against the CPU: the NLL at 16 grid points (rtol 1e-9) and
+                  lbfgs_box from 8 restarts on the rig cut to
+                  BASELINE_PARITY_STEPS steps (as device_parity). No NLL
+                  kernel may launch.
+ 28. trmse        the port's compute_trmse on device_optimize's output (100
+                  rows, 2000 steps), float64 card against float64 CPU: the
+                  non-finite rows coincide, values, mean and std at rtol
+                  1e-9; both times.
+                  The CPU float64 runs of phases 26 and 27 come from a
+                  process of their own (one thread) started with the others,
+                  once the observations exist.
+ 29. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
-                  Kvaerno3 step for n = 4, 7 and 8), the nvidia-smi line,
-                  then the device line. The solution paths and the c2
-                  phases launch none of them: no TPU kernel lies on them.
+                  Kvaerno3 step for n = 4, 7 and 8; launches by path), the
+                  nvidia-smi line, then the device line. The solution paths,
+                  the c2 phases and the baseline launch none of them: no TPU
+                  kernel lies on them.
 
+The Hodgkin-Huxley phases run in the order 10, 11, 15, 16, 9, 12, 13, 14,
+17: the two optimize phases first, so that the plain references that
+phases 9 and 13 read (host CPU work) are ready when those run.
 The build phase reports each instantiation's registers, spills and ptxas
 time. Every phase line after the first names the card and its power limit
 (`card`). Files too long for the output (the ptxas report, the synthesized
@@ -253,7 +301,12 @@ from ode_uncertainty_tpu_torch.filters import SqrtEKF
 from ode_uncertainty_tpu_torch.inference import make_obs_model, make_param_spec
 from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops import nll_kernel
+from ode_uncertainty_tpu_torch import compute_trmse
+from ode_uncertainty_tpu_torch._common import num_steps_of
 from ode_uncertainty_tpu_torch import run_parameter_estimation as rpe
+from ode_uncertainty_tpu_torch import run_parameter_estimation_baseline as rpeb
+from ode_uncertainty_tpu_torch.inference import LBFGSResult, lbfgs_box
+from ode_uncertainty_tpu_torch.inference.estimate import make_stage_optimizer
 from ode_uncertainty_tpu_torch.run_parameter_estimation import build_rig, evaluate, gammas_of, optimize
 from ode_uncertainty_tpu_torch.utils.autograd_probe import nll_of, peak_memory, rig_at, step_times, synced
 from ode_uncertainty_tpu_torch.utils.autograd_probe import points as probe_points
@@ -284,9 +337,9 @@ HH_PARITY_LANES = 256
 HH_P99_F32 = 5e-4  # the implicit value tolerance of tests/test_pallas_ekf.py:314
 HH_GRID_CHECK = 8
 HH_PLAIN_TIMING_STEPS = 20  # the Kvaerno3 plain version costs ~0.2 s a step on the card
-# the n = 8 plain gradient's timing horizon: ~0.8 s a step on the card (16 s
-# for 20 steps, three timings), cut to make room for the solution phases
-HH_N8_PLAIN_TIMING_STEPS = 10
+# the n = 8 plain gradient's timing horizon: ~0.6 s a step on the card (16 s
+# for 20 steps, three timings), cut to make room for the later phases
+HH_N8_PLAIN_TIMING_STEPS = 3
 HH_GNA_TRUE = 25.0  # the generating g_Na (models/hodgkin_huxley.py _SINGLE_DEFAULTS)
 HH_GRAD_LANES = 64
 HH_GRAD_P99_F32 = 1e-2  # the implicit gradient rtol of tests/test_pallas_ekf.py:319
@@ -301,9 +354,11 @@ HH_FD_TOL = 1e-4  # |kernel - differences| / (|differences| + 1)
 HH_GRAD_F32_HELD_STAGES = (1, 2, 3)
 HH_F32_PROBE_REL = 1e-6
 # hh_optimize's depth: the experiment's 200 took 336 s on the card (a
-# straggler ran stage 2 to 113 iterations, 245 s); the width (100 restarts,
-# 4 stages, 10^4 steps, float32, the real observations) is not cut.
-HH_LBFGS_MAXITER = 40
+# straggler ran stage 2 to 113 iterations, 245 s), 40 took 84 s; cut to 20
+# to keep the script well inside its 1,200 s limit. The width (100
+# restarts, 4 stages, 10^4 steps, float32, the real observations) is not
+# cut.
+HH_LBFGS_MAXITER = 20
 HH_FULL_EXPERIMENT = "params/hodgkinhuxley7_full"
 # horizon of hh_grad_parity's n = 7 and n = 8 rigs (64 lanes, every row): the
 # float64 plain gradient, and on the g_Na rigs the float32 one, take 20-30 s
@@ -312,11 +367,12 @@ HH_FULL_GRAD_RIG_STEPS = 60
 # hh_full_optimize's depth: the experiment's 400 would run for hours (one
 # dispatch, nll_fwd plus nll_bwd over 7 directions at up to 256 lanes, takes
 # 1.17 s on the card; at 20 the phase made 273 dispatches in 321 s, at 12
-# 175 in 205 s; at 6, 14 of the 100 restarts ended non-finite, measured on
-# one H100); cut so that the phase stays under ~240 s. The width (100
-# restarts, 4 stages, 10^4 steps, 7 rows, float32, the real observations)
-# is not cut.
-HH_FULL_LBFGS_MAXITER = 12
+# 175 in 205 s, at 10 the port's optimize took 187 s with 98 restarts
+# finite; at 8, 6 and at 6, 14 of the 100 restarts ended non-finite,
+# measured on one H100); cut so that the phase stays under ~200 s. The
+# width (100 restarts, 4 stages, 10^4 steps, 7 rows, float32, the real
+# observations) is not cut.
+HH_FULL_LBFGS_MAXITER = 10
 HH_FULL_TIMING_REPS = 3  # CUDA-event timings of the n = 8 gradient (about a second each)
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth, non-tensor float32 and float64 FLOP/s.
@@ -424,10 +480,18 @@ def ops_per_lane(cm, phys=None) -> int:
     return counts[0] + (cm.n_obs - 1) * counts[1]
 
 
+GRAD_OPS: dict = {}  # grad_ops_per_lane's counts by chain structure
+
+
 def grad_ops_per_lane(cm) -> int:
     """Operations one lane's gradient takes by reverse mode (the plain
     version's forward and backward over the whole horizon): counted on one
-    lane for 2 and 3 observations, the rest by the per-interval increment."""
+    lane for 2 and 3 observations, the rest by the per-interval increment.
+    The count depends on the chain's structure alone (not on its type), so
+    it is counted once for each structure."""
+    key = (cm.model_name, cm.solver.name, cm.n, cm.L, cm.d, cm.first, cm.n_obs, cm.k_params, cm.accumulate_time)
+    if key in GRAD_OPS:
+        return GRAD_OPS[key]
     counts = []
     for n_obs in (2, 3):
         short = dataclasses.replace(cm, n_obs=n_obs)
@@ -436,7 +500,8 @@ def grad_ops_per_lane(cm) -> int:
         with OpCounter() as c:
             nll_kernel.nll_grad_plain(short, phys, ys, 0.1, torch.ones(1, dtype=cm.dtype))
         counts.append(c.ops)
-    return counts[0] + (cm.n_obs - 2) * (counts[1] - counts[0])
+    GRAD_OPS[key] = counts[0] + (cm.n_obs - 2) * (counts[1] - counts[0])
+    return GRAD_OPS[key]
 
 
 def bound_ms(cm, batch: int, grad: bool = False, phys=None) -> tuple:
@@ -516,6 +581,11 @@ class LaunchTimer:
             out[name] += start.elapsed_time(end) / 1e3
         return out
 
+    def durations(self) -> list:
+        """(kernel, seconds) of every launch, in launch order."""
+        torch.cuda.synchronize()
+        return [(name, start.elapsed_time(end) / 1e3) for name, start, end in self.events]
+
 
 def synthesize_observations(path: Path) -> dict:
     """RKF45 solve of Lotka-Volterra at its default parameters, one point per
@@ -530,7 +600,9 @@ def synthesize_observations(path: Path) -> dict:
     )
     x = sol["x"].cpu().numpy()
     noise = np.sqrt(raw["obs_noise_var"]) * np.random.default_rng(SEED).standard_normal(x.shape)
-    np.savez(path, t=sol["t"].cpu().numpy(), x=x + noise)
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, t=sol["t"].cpu().numpy(), x=x + noise)
+    tmp.replace(path)  # whole: the device reference process waits for it
     return {"observations": str(path.relative_to(ROOT)), "points": int(x.shape[0]), "steps": steps,
             "noise_var": raw["obs_noise_var"], "seed": SEED}
 
@@ -569,6 +641,33 @@ def lv2_kernel(cfg, dtype):
                                     rig.state0, rig.num_steps, rig.q_sqrt)
 
 
+def lv2_grid(cfg) -> tuple:
+    """(indices, axes, normalized points, (first, last) stage's gamma^1/2) of
+    the GRID_CHECK points of evaluate's 20 x 20 grid held to the plain
+    version."""
+    grid_idx = np.linspace(0, 399, GRID_CHECK).astype(int)
+    axes = [np.linspace(0.0, 1.0, 20)] * 2
+    grid_norm = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 2)[grid_idx]
+    gammas = cfg["gamma_noise_schedule"].gammas(4, True).to(torch.float32)
+    return grid_idx, axes, grid_norm, (float(torch.sqrt(gammas[0])), float(torch.sqrt(gammas[-1])))
+
+
+def lv_parity_rigs(cfg=None) -> dict:
+    """key -> (rig name, wrapper maker, keyword arguments) of the rigs that
+    parity (``parity_*``) and grad_parity (``grad_*``) hold to a plain
+    version; ``cfg`` is the lotkavolterra2 config on the synthesized
+    observations (None: the bench.py rigs alone)."""
+    rigs = {"parity_bench": ("bench.py lv", bench_lv_kernel, {}),
+            "grad_bench": (f"bench.py lv, {BENCH_GRAD_STEPS} steps",
+                           lambda dt: bench_lv_kernel(dt, num_steps=BENCH_GRAD_STEPS), {})}
+    if cfg is not None:
+        _, _, grid_norm, grid_gammas = lv2_grid(cfg)
+        lv2 = lambda dt: lv2_kernel(cfg, dt)
+        rigs.update(parity_lv2=("params/lotkavolterra2", lv2, dict(grid_norm=grid_norm, grid_gammas=grid_gammas)),
+                    grad_lv2=("params/lotkavolterra2", lv2, {}))
+    return rigs
+
+
 def compare(kernel_vals, plain_vals, exact: bool, p99_limit: float = P99_F32) -> dict:
     """Kernel values against the float64 plain version's: float64 max
     relative error <= RTOL_F64, float32 p99 of the lane-normalized error
@@ -596,27 +695,40 @@ def compare(kernel_vals, plain_vals, exact: bool, p99_limit: float = P99_F32) ->
     return stat
 
 
-def parity(name, make, grid_norm=None, grid_gammas=None) -> dict:
-    """Kernel (float64 and float32) against the float64 plain version on
-    random lanes at gamma^1/2 = 0.1 and gamma = 0 (plus optional grid lanes)."""
+def parity_groups(cols: int, grid_norm=None, grid_gammas=None) -> list:
+    """parity's lanes as (normalized params, gamma^1/2) groups: random lanes
+    at gamma^1/2 = 0.1 and gamma = 0 (plus optional grid lanes)."""
     rng = np.random.default_rng(SEED)
-    k64, k32 = make(torch.float64), make(torch.float32)
-    cols = k64.spec.num_opt
     half = PARITY_LANES // 2 - (0 if grid_norm is None else len(grid_norm))
-    groups = []  # (normalized params, gamma_sqrt)
+    groups = []
     for g_sqrt, g_grid in ((0.1, None if grid_gammas is None else grid_gammas[0]),
                            (0.0, None if grid_gammas is None else grid_gammas[1])):
-        p = rng.uniform(size=(half, cols))
-        groups.append((p, g_sqrt))
+        groups.append((rng.uniform(size=(half, cols)), g_sqrt))
         if grid_norm is not None:
             groups.append((grid_norm, g_grid))
-    p_all = torch.as_tensor(np.concatenate([g[0] for g in groups]), device=DEVICE)
-    g_all = torch.as_tensor(np.concatenate([np.full(len(g[0]), g[1]) for g in groups]),
-                            dtype=torch.float64, device=DEVICE)
-    phys64 = k64.physical(p_all)
-    plain64, plain_ms = sync_time(lambda: nll_kernel.nll_plain(k64.cm, phys64, k64.ys, g_all))
+    return groups
+
+
+def parity_plain(make, grid_norm=None, grid_gammas=None) -> dict:
+    """parity's float64 plain version on the host's CPU (the device
+    reference process)."""
+    k64 = make(torch.float64)
+    groups = parity_groups(k64.spec.num_opt, grid_norm, grid_gammas)
+    p_all = torch.as_tensor(np.concatenate([g[0] for g in groups]))
+    g_all = torch.as_tensor(np.concatenate([np.full(len(g[0]), g[1]) for g in groups]), dtype=torch.float64)
+    phys64 = k64.physical(p_all.to(DEVICE)).cpu()
+    plain64, ms = cpu_time(lambda: nll_kernel.nll_plain(k64.cm, phys64, k64.ys.cpu(), g_all))
+    return {"plain64": plain64, "ms": ms}
+
+
+def parity(name, make, ref: dict, grid_norm=None, grid_gammas=None) -> dict:
+    """Kernel (float64 and float32) against the float64 plain version
+    (``ref``, from :func:`parity_plain`) on parity_groups' lanes."""
+    k64, k32 = make(torch.float64), make(torch.float32)
+    groups = parity_groups(k64.spec.num_opt, grid_norm, grid_gammas)
+    plain64 = ref["plain64"]
     out = {"rig": name, "L": k64.cm.L, "d": k64.cm.d, "n_obs": k64.cm.n_obs,
-           "plain_f64_ms": plain_ms}
+           "plain_f64_cpu_ms": ref["ms"], "plain_waited_s": ref["waited_s"]}
     for label, kern, exact in (("f64", k64, True), ("f32", k32, False)):
         vals = torch.cat([kern.launch(kern.physical(torch.as_tensor(p, device=DEVICE)), g)
                           for p, g in groups])
@@ -663,21 +775,36 @@ def compare_grads(kernel_vals, plain_vals, exact: bool, p99_limit: float = GRAD_
     return stat
 
 
-def grad_parity(name, make) -> dict:
-    """nll_bwd (float64 and float32) against the float64 plain gradient on
-    GRAD_LANES random lanes, half at gamma^1/2 = 0.1 and half at 0, with a
-    random cotangent."""
+def grad_inputs(cols: int) -> tuple:
+    """grad_parity's GRAD_LANES random lanes, half at gamma^1/2 = 0.1 and
+    half at 0, with a random cotangent: (points, cotangents, gamma^1/2) on
+    DEVICE."""
     rng = np.random.default_rng(SEED + 1)
+    p = torch.as_tensor(rng.uniform(size=(GRAD_LANES, cols)), device=DEVICE)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=GRAD_LANES), device=DEVICE)
+    gs = torch.as_tensor(np.repeat([0.1, 0.0], GRAD_LANES // 2), device=DEVICE)
+    return p, g, gs
+
+
+def grad_plain(make) -> dict:
+    """grad_parity's float64 plain gradient on the host's CPU (the device
+    reference process): [K + 1, B] (rows, then d/d gamma^1/2)."""
+    k64 = make(torch.float64)
+    p, g, gs = grad_inputs(k64.spec.num_opt)
+    (dphys, dgamma), ms = cpu_time(lambda: nll_kernel.nll_grad_plain(
+        k64.cm, k64.physical(p).cpu(), k64.ys.cpu(), gs.cpu(), g.cpu()))
+    return {"plain64": torch.cat([dphys, dgamma[None]]), "ms": ms}
+
+
+def grad_parity(name, make, ref: dict) -> dict:
+    """nll_bwd (float64 and float32) against the float64 plain gradient
+    (``ref``, from :func:`grad_plain`) on grad_inputs' lanes."""
     k64, k32 = make(torch.float64), make(torch.float32)
     half = GRAD_LANES // 2
-    p = torch.as_tensor(rng.uniform(size=(GRAD_LANES, k64.spec.num_opt)), device=DEVICE)
-    g = torch.as_tensor(rng.uniform(0.5, 1.5, size=GRAD_LANES), device=DEVICE)
-    gs = torch.as_tensor(np.repeat([0.1, 0.0], half), device=DEVICE)
-    phys64 = k64.physical(p)
-    (dphys, dgamma), plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(k64.cm, phys64, k64.ys, gs, g))
-    plain = torch.cat([dphys, dgamma[None]])
+    p, g, _ = grad_inputs(k64.spec.num_opt)
+    plain = ref["plain64"]
     out = {"rig": name, "L": k64.cm.L, "d": k64.cm.d, "n_obs": k64.cm.n_obs, "lanes": GRAD_LANES,
-           "plain_f64_ms": plain_ms}
+           "plain_f64_cpu_ms": ref["ms"], "plain_waited_s": ref["waited_s"]}
     for label, kern, exact in (("f64", k64, True), ("f32", k32, False)):
         parts = [kern.grad.launch(kern.physical(p[sl]), gsv, g[sl])
                  for sl, gsv in ((slice(0, half), 0.1), (slice(half, None), 0.0))]
@@ -857,11 +984,17 @@ def hh_grad_parity(name, make, gamma_sqrt, ref: dict, lanes=HH_GRAD_LANES, f32_l
 
 
 # The plain references of hh_parity and hh_grad_parity (~350 s of host work
-# at these rigs' depths on the card machine) run in PLAIN_REF_GROUPS
-# processes of their own from the build phase on, so that the card phases
-# do not wait for them; each group is a process of one thread.
+# at these rigs' depths on the card machine) and of parity and grad_parity
+# (the LV rigs; ~90 s eagerly on the card, ~65 s on one CPU thread) run in
+# PLAIN_REF_GROUPS processes of their own from the build phase on, so that
+# the card phases do not wait for them; each group is a process of one
+# thread. The LV groups come first; the HH phases that read the HH groups
+# run after hh_optimize and hh_full_optimize.
 PLAIN_REF_DIR = OUT / "plain_refs"
+LV_REF_KEYS = ("parity_lv2", "parity_bench", "grad_lv2", "grad_bench")
 PLAIN_REF_GROUPS = (
+    ("parity_bench", "grad_bench"),
+    ("parity_lv2", "grad_lv2"),
     ("spike_x0", "parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4"),
     ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1"),
     ("grad_onset_full", "grad_box_full"),
@@ -919,13 +1052,24 @@ def save_atomically(obj, path: Path) -> None:
 def plain_references(out_dir: Path, keys: list) -> None:
     """Computes the plain references ``keys`` on the host's CPU, each saved
     as ``<key>.pt`` in ``out_dir``; ``spike_x0`` is the spike rigs' x0
-    (the other groups wait for its file)."""
+    (the other groups wait for its file), the LV2 rigs wait for the
+    synthesized observations."""
     global DEVICE
     DEVICE = "cpu"
     torch.set_num_threads(1)
     hh_gs0 = float(torch.sqrt(gammas_of(hh_config(), torch.float64)[0]))
     x_spike = None
     for key in keys:
+        if key in LV_REF_KEYS:
+            cfg = None
+            if key.endswith("lv2"):
+                while not LV2_OBS.exists():
+                    time.sleep(0.5)
+                cfg = lv2_config(LV2_OBS, OUT / "lv2_evaluate.npz")
+            _, make, kw = lv_parity_rigs(cfg)[key]
+            plain = parity_plain if key.startswith("parity") else grad_plain
+            save_atomically(plain(make, **kw), out_dir / f"{key}.pt")
+            continue
         if key == "spike_x0":
             x, ms = cpu_time(lambda: hh_spike_state(hh_config()))
             save_atomically({"x": x, "ms": ms}, out_dir / "spike_x0.pt")
@@ -939,28 +1083,33 @@ def plain_references(out_dir: Path, keys: list) -> None:
         save_atomically(plain(make, hh_gs0, **kw), out_dir / f"{key}.pt")
 
 
-def start_plain_references() -> list:
+def start_plain_references(lv: bool) -> dict:
+    """Starts the processes of the LV groups (``lv``) or of the HH groups of
+    PLAIN_REF_GROUPS: {group index: process}."""
     PLAIN_REF_DIR.mkdir(exist_ok=True)
-    for stale in PLAIN_REF_DIR.glob("*"):
-        stale.unlink()
-    procs = []
+    procs = {}
     for i, keys in enumerate(PLAIN_REF_GROUPS):
+        if (set(keys) <= set(LV_REF_KEYS)) != lv:
+            continue
+        for key in keys:
+            (PLAIN_REF_DIR / f"{key}.pt").unlink(missing_ok=True)
         log = open(OUT / f"plain_references_{i}.log", "w")
-        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--plain-references",
-                                       str(PLAIN_REF_DIR), *keys], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+        procs[i] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--plain-references",
+                                     str(PLAIN_REF_DIR), *keys], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
     return procs
 
 
-def plain_ref(procs: list, key: str) -> dict:
+def plain_ref(procs: dict, key: str) -> dict:
     """The plain reference ``key``, waiting for the process of its group."""
     path = PLAIN_REF_DIR / f"{key}.pt"
     group = next(i for i, keys in enumerate(PLAIN_REF_GROUPS) if key in keys)
+    waited = time.perf_counter()
     while not path.exists():
         if procs[group].poll() is not None and not path.exists():
             raise AssertionError(f"the plain reference process {group} ended without {key}: "
                                  + (OUT / f"plain_references_{group}.log").read_text()[-4000:])
         time.sleep(0.5)
-    return torch.load(path)
+    return {**torch.load(path), "waited_s": time.perf_counter() - waited}
 
 
 def hh_bench_kernel(dtype):
@@ -985,8 +1134,8 @@ LORENZ_HELD_STEPS = 1000
 # (h = 1e-4, tN 80) and noise_gt/lotkavolterra 200,000 Kvaerno3 steps, at
 # 1.67 ms and 7.8 ms a step on the card (the solve runs eagerly; measured
 # on one H100): hours at full depth, so both are cut to keep the phase
-# within about 30 s (the solvers, the step and the state are the configs')
-ODE_GT_STEPS = 10_000
+# within about 15 s (the solvers, the step and the state are the configs')
+ODE_GT_STEPS = 5_000
 ODE_NOISE_STEPS = 1_000
 EXT_FILTERS = {"DenseEKF": "EKF", "UKF": "UKF", "SqrtUKF": "UKF_SQRT", "GMMSqrtEKF": "GMM_EKF"}
 GT_NPZ = ROOT / "ode_uncertainty_tpu_torch" / "data" / "gt_lotkavolterra.npz"
@@ -1236,14 +1385,17 @@ C2_DATA = HH_DATA / "hodgkinhuxley_c2_r4.npz"
 # backward on the card, at 1 lane as at 100 (launch-bound;
 # utils/autograd_probe.py on one H100), so the c2 phases run short horizons.
 C2_T0 = 9.9  # the running sum t += h reaches the stimulus onset (t = 10) at step 11
-C2_RIG_STEPS = 16
+# the script's 1,200 s limit sets these depths: the rig runs two steps past
+# the onset, c2_optimize (one step) stops before it, the timings and the
+# memory probes run 1 and 2 steps
+C2_RIG_STEPS = 13
 C2_POINTS = 4
 C2_LANES = 100
 C2_FD_STEP = 1e-5
 C2_FD_TOL = 1e-4  # |autograd - differences| / (|differences| + 1)
-C2_TIMING_STEPS = 2
-C2_MEMORY_HORIZONS = (2, 6)
-C2_OPT_STEPS = 3  # c2_optimize's horizon: the experiment's is 10^4 steps
+C2_TIMING_STEPS = 1
+C2_MEMORY_HORIZONS = (1, 2)
+C2_OPT_STEPS = 1  # c2_optimize's horizon: the experiment's is 10^4 steps
 C2_LBFGS_MAXITER = 2  # the experiment's is 200
 
 
@@ -1423,12 +1575,329 @@ def c2_phases(refs: subprocess.Popen) -> None:
                        output=str(c2_path.relative_to(ROOT)))
 
 
+# ---- the device L-BFGS (optimizer_mode=device), the filter-free baseline and tRMSE ----
+LV2_OBS = OUT / "lv2_observations.npz"  # synthesized by the observations phase
+DEVICE_PARITY_RESTARTS = 8
+# device_parity's horizon: its CPU side (the plain gradient, one thread)
+# takes ~3 s a dispatch at 200 steps and ~300 s in all (its cpu_f64_s); the
+# experiment's is 2000 steps
+DEVICE_PARITY_STEPS = 200
+DEVICE_PARITY_X_ATOL = 1e-8  # normalized box
+BASELINE_EXPERIMENT = "params_baseline/lotkavolterra2"
+# the experiment's lbfgs_maxiter is 200. The eager solve's value and
+# gradient at 100 lanes and 2000 steps take ~10 s a dispatch on the card
+# (this phase's optimize), and the first Armijo iteration from the random
+# restarts backtracks many times (the unscaled steepest-descent step leaves
+# the box), so even one iteration would take minutes: the full-width cell
+# runs the initial evaluation alone (one value-and-gradient dispatch at 100
+# lanes); the float64 parity run iterates to its end at 100 steps (at 200
+# its card side made 54 dispatches in 46 s; at 100, 66 dispatches on the
+# CPU, at 50, 378: the shorter horizon's landscape makes the Armijo search
+# backtrack more)
+BASELINE_LBFGS_MAXITER = 0
+BASELINE_GRID_CHECK = 16
+BASELINE_PARITY_RESTARTS = 8
+BASELINE_PARITY_STEPS = 100
+# evaluate's 2,500 grid points in one batch (the CLI's eval_batch; its
+# default, 256, makes ten eager solves of 2000 steps, ~3.6 s each)
+BASELINE_EVAL_BATCH = 2500
+DEVICE_REF_DIR = OUT / "device_refs"
+
+
+def cut_config(experiment: str, device: str, float64: bool, steps: int = None, **over):
+    """``experiment`` on the synthesized LV observations, cut to ``steps``
+    solver steps (None: the experiment's horizon)."""
+    raw = load_experiment(experiment)
+    if steps is not None:
+        over["tN"] = raw["t0"] + (steps - 0.5) * raw["solver_builder"]["init_args"]["step_size"]
+    return build_config(raw, {"y_path": str(LV2_OBS), "device": device, "float64": float64, **over})
+
+
+def steps_of(cfg) -> int:
+    return num_steps_of(cfg, cfg["solver_builder"])
+
+
+def device_parity_run(device: str) -> dict:
+    """device_parity's run: the device stage optimizer (make_stage_optimizer,
+    what optimize's device mode runs) over the entry points' batched_nll on
+    params/lotkavolterra2 cut to DEVICE_PARITY_STEPS steps, float64, from
+    DEVICE_PARITY_RESTARTS restarts (numpy's default_rng) through the first
+    tempering stage's gamma and 0."""
+    cfg = cut_config("params/lotkavolterra2", device, True, DEVICE_PARITY_STEPS, num_tempering_stages=2)
+    rig = build_rig(cfg, torch.float64, torch.device(device))
+    nll_b, on_kernels = rpe.batched_nll(rig, cfg, grad=True)
+    gammas = gammas_of(cfg, torch.float64)
+    stage = make_stage_optimizer(nll_b, max_iter=cfg["lbfgs_maxiter"], tol=cfg.get("lbfgs_tol", 1e-4))
+    p = torch.as_tensor(np.random.default_rng(SEED + 14).uniform(size=(DEVICE_PARITY_RESTARTS, rig.spec.num_opt)),
+                        device=device)
+    out = {field: [] for field in LBFGSResult._fields}
+    t0 = time.perf_counter()
+    for gamma in gammas:
+        res = stage(p, gamma)
+        for field in out:
+            out[field].append(getattr(res, field).cpu().numpy())
+        p = res.x
+    return {**{k: np.stack(v, axis=1) for k, v in out.items()}, "gammas": gammas.cpu().numpy(),
+            "wall_s": time.perf_counter() - t0, "steps": rig.num_steps, "on_kernels": on_kernels}
+
+
+def baseline_grid(cfg, spec) -> np.ndarray:
+    """evaluate's normalized grid of the baseline config (the CLI's order)."""
+    axes = [np.linspace(0.0, 1.0, int(cfg["num_param_evals"].get(k, 1))) for k in spec.opt_keys]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, len(axes))
+
+
+def baseline_checks(device: str) -> dict:
+    """The baseline's float64 checks: the NLL at BASELINE_GRID_CHECK points of
+    evaluate's grid at the full horizon, and lbfgs_box (the baseline CLI's
+    optimizer) from BASELINE_PARITY_RESTARTS restarts (numpy's default_rng)
+    on the rig cut to BASELINE_PARITY_STEPS steps."""
+    dev = torch.device(device)
+    cfg = cut_config(BASELINE_EXPERIMENT, device, True)
+    spec, nll = rpeb.build_baseline(cfg, torch.float64, dev)
+    grid = baseline_grid(cfg, spec)
+    idx = np.linspace(0, len(grid) - 1, BASELINE_GRID_CHECK).astype(int)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        grid_nll = nll(torch.as_tensor(grid[idx], device=dev)).cpu().numpy()
+    t1 = time.perf_counter()
+    cut_cfg = cut_config(BASELINE_EXPERIMENT, device, True, BASELINE_PARITY_STEPS)
+    spec_c, nll_c = rpeb.build_baseline(cut_cfg, torch.float64, dev)
+    p0 = np.random.default_rng(SEED + 15).uniform(size=(BASELINE_PARITY_RESTARTS, spec_c.num_opt))
+    res = lbfgs_box(nll_c, torch.as_tensor(p0, device=dev), 0.0, 1.0, max_iter=cut_cfg["lbfgs_maxiter"],
+                    tol=cut_cfg.get("lbfgs_tol", 1e-4))
+    out = {field: getattr(res, field).cpu().numpy() for field in res._fields}
+    return {**out, "grid_idx": idx, "grid_nll": grid_nll, "grid_s": t1 - t0, "optimize_s": time.perf_counter() - t1}
+
+
+def device_references(out_dir: Path) -> None:
+    """The CPU float64 runs of device_parity and of the baseline's checks,
+    each saved as ``<key>.npz`` in ``out_dir``; waits for the synthesized
+    observations. Runs in a process of its own beside the card phases."""
+    torch.set_num_threads(1)
+    while not LV2_OBS.exists():
+        time.sleep(0.5)
+    for key, run in (("baseline", baseline_checks), ("device_parity", device_parity_run)):
+        tmp = out_dir / f"{key}.tmp.npz"
+        np.savez(tmp, **run("cpu"))
+        tmp.replace(out_dir / f"{key}.npz")
+
+
+def start_device_references() -> subprocess.Popen:
+    DEVICE_REF_DIR.mkdir(exist_ok=True)
+    for stale in DEVICE_REF_DIR.glob("*"):
+        stale.unlink()
+    log = open(OUT / "device_references.log", "w")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--device-references",
+                             str(DEVICE_REF_DIR)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def device_ref(proc: subprocess.Popen, key: str) -> dict:
+    """The CPU reference ``key`` of the device reference process, waiting
+    for it."""
+    path = DEVICE_REF_DIR / f"{key}.npz"
+    waited = time.perf_counter()
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            raise AssertionError("the device reference process ended without " + key + ": "
+                                 + (OUT / "device_references.log").read_text()[-4000:])
+        time.sleep(0.5)
+    with np.load(path) as z:
+        return {**{k: z[k] for k in z.files}, "waited_s": time.perf_counter() - waited}
+
+
+def same_optimizer_run(got: dict, ref: dict, label: str, x_atol: float = DEVICE_PARITY_X_ATOL) -> dict:
+    """Card against CPU runs of one optimizer: iterations and evaluations
+    equal in every lane, x within ``x_atol``, f at rtol 1e-9 (the non-finite
+    lanes coincide); on a mismatch, the lanes that differ."""
+    fin = np.isfinite(ref["f"])
+    f_rel = np.abs(got["f"][fin] - ref["f"][fin]) / np.abs(ref["f"][fin])
+    x_err = np.abs(got["x"] - ref["x"])
+    stat = {"iters_equal": bool(np.array_equal(got["iters"], ref["iters"])),
+            "n_fev_equal": bool(np.array_equal(got["n_fev"], ref["n_fev"])),
+            "x_max_abs_err": float(np.nanmax(x_err)), "x_atol": x_atol,
+            "f_max_rel_err": float(f_rel.max()) if f_rel.size else 0.0, "f_rtol": RTOL_F64,
+            "nonfinite_mismatch": int((np.isfinite(got["f"]) != fin).sum())}
+    ok = (stat["iters_equal"] and stat["n_fev_equal"] and stat["x_max_abs_err"] <= x_atol
+          and stat["f_max_rel_err"] <= RTOL_F64 and not stat["nonfinite_mismatch"])
+    if not ok:
+        lanes = np.nonzero((got["iters"] != ref["iters"]) | (got["n_fev"] != ref["n_fev"]))
+        raise AssertionError(f"{label}: card and CPU runs differ: {stat}; lanes {lanes}: "
+                             f"card iters {got['iters'][lanes]}, n_fev {got['n_fev'][lanes]}, f {got['f'][lanes]}; "
+                             f"CPU iters {ref['iters'][lanes]}, n_fev {ref['n_fev'][lanes]}, f {ref['f'][lanes]}")
+    return stat
+
+
+DEVICE_OPT_OUT = OUT / "lv2_optimize_device.npz"
+
+
+def device_phases(dev_refs: subprocess.Popen, host: dict = None) -> dict:
+    """The device_optimize, device_parity, baseline and trmse phases (see the
+    module note); ``host`` is the optimize phase's best final NLL and
+    optimum. Returns device_optimize's launch counts."""
+    counts = device_optimize_phase(host)
+    device_parity_phase(dev_refs)
+    baseline_phase(dev_refs)
+    trmse_phase()
+    return counts
+
+
+def device_optimize_phase(host: dict = None) -> dict:
+    dev_path = DEVICE_OPT_OUT
+    for stale in OUT.glob("lv2_optimize_device*"):
+        stale.unlink()
+    with Phase("device_optimize") as ph:
+        cfg = cut_config("params/lotkavolterra2", DEVICE, False, output=str(dev_path), optimizer_mode="device",
+                         resume=False)
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        with LaunchTimer() as timer:
+            res = optimize(cfg)
+        wall = time.perf_counter() - t0
+        counts = dict(nll_kernel.launches)
+        launch_s = timer.durations()
+        final = np.asarray(res["nll_optims"][:, -1], np.float64)
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 2):
+            raise AssertionError(f"device optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if min(counts.values()) <= 0 or res["route"] != "nll_fwd + nll_bwd kernels" or res["optimizer_mode"] != "device":
+            raise AssertionError(f"device optimize did not run both kernels: {counts}, {res['route']}")
+        finite = np.isfinite(final)
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 device-mode restarts end finite")
+        # every dispatch is one nll_fwd and one nll_bwd launch, in order:
+        # each stage's launches are the next 2 x its dispatches
+        dispatches = [u["dispatches"] for u in res["units"]]
+        if len(launch_s) != 2 * sum(dispatches) or counts != {"nll_fwd": sum(dispatches), "nll_bwd": sum(dispatches)}:
+            raise AssertionError(f"device optimize launches {counts} for {dispatches} dispatches")
+        bounds = np.cumsum([0, *dispatches]) * 2
+        stage_kernel_s = [sum(sec for _, sec in launch_s[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        kernel_total = sum(sec for _, sec in launch_s)
+        ph.info.update(launches=counts, route=res["route"], optimizer_mode=res["optimizer_mode"], optimize_wall_s=wall,
+                       restarts=100, stages=4, dtype="float32", steps=steps_of(cfg), lbfgs_maxiter=cfg["lbfgs_maxiter"],
+                       finite_final=int(finite.sum()), best_final_nll=float(final[best]),
+                       best_optimum=res["params_optims"][best, -1].tolist(), host_optimize=host,
+                       seconds_per_stage=[u["seconds"] for u in res["units"]], dispatches_per_stage=dispatches,
+                       widest_per_stage=[u["widest"] for u in res["units"]],
+                       lanes_at_max_iter_per_stage=[u["lanes_at_max_iter"] for u in res["units"]],
+                       kernel_seconds_per_stage=stage_kernel_s,
+                       kernel_share_per_stage=[k / u["seconds"] for k, u in zip(stage_kernel_s, res["units"])],
+                       kernel_seconds=timer.seconds(), kernel_share=kernel_total / wall,
+                       device_idle_share_at_most=1.0 - kernel_total / wall,
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       n_fev_median_per_stage=np.median(res["num_nll_evals"], axis=0).tolist(),
+                       output=str(dev_path.relative_to(ROOT)))
+    return counts
+
+
+def device_parity_phase(dev_refs: subprocess.Popen) -> None:
+    with Phase("device_parity") as ph:
+        nll_kernel.reset_launches()
+        got = device_parity_run(DEVICE)
+        parity_counts = dict(nll_kernel.launches)
+        if not got["on_kernels"] or min(parity_counts.values()) <= 0:
+            raise AssertionError(f"device_parity did not run the kernels: {parity_counts}")
+        ref = device_ref(dev_refs, "device_parity")
+        first = gammas_of(cut_config("params/lotkavolterra2", "cpu", True), torch.float64)[0]
+        if not np.array_equal(got["gammas"], ref["gammas"]) or got["gammas"][0] != first:
+            raise AssertionError(f"device_parity's stages {got['gammas']} are not the first stage's gamma and 0")
+        stat = same_optimizer_run(got, ref, "device_parity")
+        ph.info.update(restarts=DEVICE_PARITY_RESTARTS, steps=int(got["steps"]), cut_from_steps=2000,
+                       gammas=got["gammas"].tolist(), launches=parity_counts, **stat,
+                       iters=got["iters"].tolist(), n_fev=got["n_fev"].tolist(), card_s=float(got["wall_s"]),
+                       cpu_f64_s=float(ref["wall_s"]), cpu_waited_s=ref["waited_s"],
+                       lbfgs_maxiter=200, converged=got["converged"].tolist())
+
+
+def baseline_phase(dev_refs: subprocess.Popen) -> None:
+    base_path = OUT / "baseline.npz"
+    base_path.unlink(missing_ok=True)
+    with Phase("baseline") as ph:
+        nll_kernel.reset_launches()
+        cfg = cut_config(BASELINE_EXPERIMENT, DEVICE, False, output=str(base_path),
+                         lbfgs_maxiter=BASELINE_LBFGS_MAXITER, eval_batch=BASELINE_EVAL_BATCH)
+        # at the cut depth optimize is the timed value-and-gradient dispatch
+        # at 100 lanes (lbfgs_box's initial evaluation) and the iterations
+        opt = rpeb.optimize(cfg)
+        final = np.asarray(opt["nll_optims"], np.float64)
+        finite = np.isfinite(final)
+        if final.shape != (100,) or finite.mean() < 0.95:
+            raise AssertionError(f"baseline optimize: shape {final.shape}, {finite.sum()} finite")
+        if (opt["num_lbfgs_iters"] > BASELINE_LBFGS_MAXITER).any():
+            raise AssertionError(f"baseline optimize ran past lbfgs_maxiter: {opt['num_lbfgs_iters'].max()}")
+        ev = rpeb.evaluate(cfg)
+        vals = ev["nll_evals"]
+        if vals.shape != (1, 2500) or not np.isfinite(vals).all():
+            raise AssertionError(f"baseline evaluate gave {vals.shape}, finite {np.isfinite(vals).all()}")
+        # float64: card against the CPU
+        got = baseline_checks(DEVICE)
+        ref = device_ref(dev_refs, "baseline")
+        grid_rel = np.abs(got["grid_nll"] - ref["grid_nll"]) / np.abs(ref["grid_nll"])
+        if not grid_rel.max() <= RTOL_F64:
+            raise AssertionError(f"baseline grid NLLs differ from the CPU: {grid_rel.max()}")
+        stat = same_optimizer_run(got, ref, "baseline optimize")
+        f32_err = np.abs(vals[0, got["grid_idx"]] - got["grid_nll"]) / (np.abs(got["grid_nll"]) + 1.0)
+        if any(nll_kernel.launches.values()):
+            raise AssertionError(f"the baseline launched an NLL kernel: {nll_kernel.launches}")
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        ph.info.update(experiment=BASELINE_EXPERIMENT, route="make_baseline_nll + autograd (eager solve, no kernel)",
+                       restarts=100, steps=steps_of(cfg), dtype="float32", lbfgs_maxiter=BASELINE_LBFGS_MAXITER,
+                       cut_from_lbfgs_maxiter=200, optimize_wall_s=float(opt["wall_clock_s"]),
+                       value_and_grad_dispatches=int(opt["num_nll_evals"].max()), finite_final=int(finite.sum()),
+                       best_final_nll=float(final[best]), best_optimum=opt["params_optims"][best].tolist(),
+                       nll_median=float(np.nanmedian(final)),
+                       iters_median=float(np.median(opt["num_lbfgs_iters"])),
+                       n_fev_total=int(opt["num_nll_evals"].sum()),
+                       evaluate_points=int(vals.shape[1]), evaluate_wall_s=ev["wall_s"],
+                       evaluate_batch=BASELINE_EVAL_BATCH,
+                       evaluate_argmin=ev["param_evals"][int(np.argmin(vals[0]))].tolist(),
+                       grid_check_points=BASELINE_GRID_CHECK, grid_f64_max_rel_err_vs_cpu=float(grid_rel.max()),
+                       grid_f32_vs_f64_max_lane_err_reported=float(f32_err.max()),
+                       parity_restarts=BASELINE_PARITY_RESTARTS, parity_steps=BASELINE_PARITY_STEPS,
+                       parity_iters=got["iters"].tolist(), parity_n_fev=got["n_fev"].tolist(), **stat,
+                       card_f64_grid_s=float(got["grid_s"]), card_f64_optimize_s=float(got["optimize_s"]),
+                       cpu_f64_grid_s=float(ref["grid_s"]), cpu_f64_optimize_s=float(ref["optimize_s"]),
+                       cpu_waited_s=ref["waited_s"], output=str(base_path.relative_to(ROOT)))
+
+
+def trmse_phase() -> None:
+    dev_path = DEVICE_OPT_OUT
+    with Phase("trmse") as ph:
+        # compute_trmse appends to the file it reads: one copy per run
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            copy = OUT / f"lv2_optimize_device_trmse_{device}.npz"
+            copy.write_bytes(dev_path.read_bytes())
+            tcfg = cut_config("params/lotkavolterra2", device, True, parameter_estimates_input=str(copy))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = compute_trmse.run(tcfg)
+            runs[device] = (out, time.perf_counter() - t0)
+        got, ref = runs[DEVICE][0], runs["cpu"][0]
+        fin = np.isfinite(ref["trmse_values"])
+        if not np.array_equal(np.isfinite(got["trmse_values"]), fin):
+            raise AssertionError("tRMSE: the non-finite rows of card and CPU differ")
+        rel = [np.abs(got[k] - ref[k]) / np.abs(ref[k])
+               for k in ("trmse_mean", "trmse_std")] + [np.abs(got["trmse_values"][fin] - ref["trmse_values"][fin])
+                                                        / np.abs(ref["trmse_values"][fin])]
+        max_rel = float(max(np.max(r) for r in rel))
+        if not max_rel <= RTOL_F64:
+            raise AssertionError(f"tRMSE: card and CPU differ by {max_rel}")
+        ph.info.update(rows=int(fin.size), steps=steps_of(tcfg), finite_rows=int(fin.sum()), max_rel_err_vs_cpu_f64=max_rel,
+                       rtol=RTOL_F64, trmse_mean=float(got["trmse_mean"]), trmse_std=float(got["trmse_std"]),
+                       card_f64_s=runs[DEVICE][1], cpu_f64_s=runs["cpu"][1], source=str(dev_path.relative_to(ROOT)))
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--solution-references"]:
         solution_references(Path(sys.argv[2]))
         return 0
     if sys.argv[1:2] == ["--plain-references"]:
         plain_references(Path(sys.argv[2]), sys.argv[3:])
+        return 0
+    if sys.argv[1:2] == ["--device-references"]:
+        device_references(Path(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU",
@@ -1445,51 +1914,57 @@ def main() -> int:
                        device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     CARD = smi
 
-    with Phase("build") as ph:
-        res = build_library()
-        (OUT / "nvcc_ptxas.txt").write_text(res.log)
-        ph.info.update(nvcc_seconds=res.seconds, built=res.built, library=str(res.path.relative_to(ROOT)),
-                       ptxas=ptxas_report(res.log))
+    LV2_OBS.unlink(missing_ok=True)
+    with Phase("observations") as ph:
+        ph.info.update(synthesize_observations(LV2_OBS))
 
-    # the CPU float64 references of the solution phases, in a process of
-    # their own beside the card phases
-    refs = start_solution_references()
-    plain_procs = start_plain_references()
+    # the LV plain references need no kernel: their processes run beside
+    # the build; the CPU float64 references of the HH phases, of the
+    # solution phases and of the device phases start after it
+    plain_procs = start_plain_references(lv=True)
+    refs = dev_refs = None
     try:
-        return run_phases(refs, plain_procs, t_start)
+        with Phase("build") as ph:
+            res = build_library()
+            (OUT / "nvcc_ptxas.txt").write_text(res.log)
+            ph.info.update(nvcc_seconds=res.seconds, built=res.built, library=str(res.path.relative_to(ROOT)),
+                           ptxas=ptxas_report(res.log))
+        refs = start_solution_references()
+        plain_procs.update(start_plain_references(lv=False))
+        dev_refs = start_device_references()
+        return run_phases(refs, plain_procs, dev_refs, t_start)
     finally:
-        for proc in (refs, *plain_procs):
+        for proc in (refs, *plain_procs.values(), dev_refs):
+            if proc is None:
+                continue
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
 
 
-def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int:
+def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.Popen, t_start: float) -> int:
 
-    obs_path, out_path = OUT / "lv2_observations.npz", OUT / "lv2_evaluate.npz"
+    obs_path, out_path = LV2_OBS, OUT / "lv2_evaluate.npz"
     out_path.unlink(missing_ok=True)
-    with Phase("observations") as ph:
-        ph.info.update(synthesize_observations(obs_path))
-
     cfg = lv2_config(obs_path, out_path)
-    grid_idx = np.linspace(0, 399, GRID_CHECK).astype(int)
-    axes = [np.linspace(0.0, 1.0, 20)] * 2
-    grid_norm = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 2)[grid_idx]
-    gammas = cfg["gamma_noise_schedule"].gammas(4, True).to(torch.float32)
-    grid_gammas = (float(torch.sqrt(gammas[0])), float(torch.sqrt(gammas[-1])))
+    grid_idx, axes, grid_norm, grid_gammas = lv2_grid(cfg)
+    rigs = lv_parity_rigs(cfg)
 
     with Phase("parity") as ph:
-        lv2 = parity("params/lotkavolterra2", lambda dt: lv2_kernel(cfg, dt), grid_norm, grid_gammas)
+        name, make, kw = rigs["parity_lv2"]
+        lv2 = parity(name, make, plain_ref(plain_procs, "parity_lv2"), **kw)
         plain_grid = lv2.pop("_plain64")
-        bench = parity("bench.py lv", bench_lv_kernel)
+        name, make, kw = rigs["parity_bench"]
+        bench = parity(name, make, plain_ref(plain_procs, "parity_bench"), **kw)
         bench.pop("_plain64")
-        ph.info.update(lotkavolterra2=lv2, bench_lv=bench)
+        ph.info.update(lotkavolterra2=lv2, bench_lv=bench,
+                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
 
     with Phase("grad_parity") as ph:
-        lv2_grad = grad_parity("params/lotkavolterra2", lambda dt: lv2_kernel(cfg, dt))
-        bench_grad = grad_parity(f"bench.py lv, {BENCH_GRAD_STEPS} steps",
-                                 lambda dt: bench_lv_kernel(dt, num_steps=BENCH_GRAD_STEPS))
-        ph.info.update(lotkavolterra2=lv2_grad, bench_lv=bench_grad)
+        lv2_grad, bench_grad = (grad_parity(rigs[key][0], rigs[key][1], plain_ref(plain_procs, key))
+                                for key in ("grad_lv2", "grad_bench"))
+        ph.info.update(lotkavolterra2=lv2_grad, bench_lv=bench_grad,
+                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
 
     with Phase("main_path") as ph:
         nll_kernel.reset_launches()
@@ -1558,6 +2033,8 @@ def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int
                        output=str(opt_path.relative_to(ROOT)))
     widest = max(u["widest"] for u in res["units"])
     opt_gamma_sqrt = float(np.sqrt(res["gammas"][0]))
+    host_opt = {"best_final_nll": float(final[best]), "best_optimum": optimum.tolist(), "optimize_wall_s": wall,
+                "dispatches_per_stage": [u["dispatches"] for u in res["units"]]}
 
     with Phase("kernel_timing") as ph:
         # one launch of the main path: the first grid batch (256 lanes) at stage 0
@@ -1654,17 +2131,6 @@ def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int
     hh_gammas = gammas_of(hh_cfg, torch.float64)
     hh_gs0 = float(torch.sqrt(hh_gammas[0]))
 
-    with Phase("hh_parity") as ph:
-        spike_ref = plain_ref(plain_procs, "spike_x0")
-        x_spike = spike_ref["x"]
-        rigs = hh_parity_rigs(x_spike)
-        hh_parities = {key[len("parity_"):]: hh_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
-                                                  **rigs[key][2])
-                  for key in ("parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4")}
-        onset_r4 = hh_parities["onset_r4"]
-        ph.info.update(**hh_parities, spike_x0=x_spike.cpu().numpy().tolist(), spike_x0_solve_ms=spike_ref["ms"],
-                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
-
     with Phase("hh_full_horizon") as ph:
         # the main path's rig at its full horizon: float32 kernel against the
         # float64 kernel on evaluate's grid at every stage (the plain version
@@ -1726,145 +2192,8 @@ def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int
                        argmin_g_na_last_stage=best, generating_g_na=HH_GNA_TRUE,
                        nll_min_per_stage=vals.min(axis=1).tolist(), output=str(hh_out.relative_to(ROOT)))
 
-    with Phase("hh_timing") as ph:
-        timings = {}
-        # evaluate's launch: B = 100 grid lanes, n = 4, 10^4 steps, stage 0
-        for label, kern in (("f32", k32), ("f64", k64)):
-            phys = kern.physical(grid.to(kern.cm.dtype))
-            kern.launch(phys, hh_gs0)
-            torch.cuda.synchronize()
-            timings[f"evaluate_{label}_event_ms"] = event_times(lambda: kern.launch(phys, hh_gs0), 7)
-        # optimize's widest dispatch: B = 256 lanes
-        p256 = torch.rand((256, 1), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
-                          dtype=torch.float32, device=DEVICE)
-        phys256 = k32.physical(p256)
-        timings["b256_f32_event_ms"] = event_times(lambda: k32.launch(phys256, hh_gs0), 7)
-        phys32 = k32.physical(grid.float())
-        _, hh_plain_ms = sync_time(lambda: nll_kernel.nll_plain(cut(k32.cm, HH_PLAIN_TIMING_STEPS), phys32, k32.ys,
-                                                                hh_gs0))
-        hh_b_ms, hh_b_by, hh_ops = bound_ms(k32.cm, grid.shape[0], phys=phys32[:, :1])
-        hh_ms = float(np.median(timings["evaluate_f32_event_ms"]))
-        # bench.py's hh_full shape: B = 512, n = 8, 10^4 steps, gamma = 0.01
-        kb = hh_bench_kernel(torch.float32)
-        pb = torch.rand((512, kb.spec.num_opt), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
-                        dtype=torch.float32, device=DEVICE)
-        physb = kb.physical(pb)
-        gb = float(np.sqrt(0.01))
-        outb = kb.launch(physb, gb)
-        torch.cuda.synchronize()
-        timings["hh_full_f32_event_ms"] = event_times(lambda: kb.launch(physb, gb), 7)
-        medb = float(np.median(timings["hh_full_f32_event_ms"]))
-        _, plain_b_ms = sync_time(lambda: nll_kernel.nll_plain(cut(kb.cm, HH_PLAIN_TIMING_STEPS), physb, kb.ys, gb))
-        b_ms_b, b_by_b, ops_b = bound_ms(kb.cm, 512, phys=physb[:, :1])
-        ph.info.update(
-            evaluate_shape=f"B={grid.shape[0]}, n={k32.cm.n}, L=1, d=1, n_obs={k32.cm.n_obs}, gamma^1/2={hh_gs0:.6g}",
-            evaluate_f32_ms=hh_ms, evaluate_f64_ms=float(np.median(timings["evaluate_f64_event_ms"])),
-            b256_f32_ms=float(np.median(timings["b256_f32_event_ms"])),
-            evaluate_filter_steps_per_s=grid.shape[0] * k32.cm.n_obs / (hh_ms / 1e3),
-            evaluate_bound_ms=hh_b_ms, evaluate_bound_by=hh_b_by, evaluate_ops=hh_ops,
-            evaluate_plain_ms=hh_plain_ms, plain_steps=HH_PLAIN_TIMING_STEPS,
-            hh_full_shape=f"B=512, n={kb.cm.n}, K={kb.spec.num_opt} optimized, n_obs={kb.cm.n_obs}, float32, gamma=0.01",
-            hh_full_ms=medb, hh_full_filter_steps_per_s=512 * kb.cm.n_obs / (medb / 1e3),
-            hh_full_bound_ms=b_ms_b, hh_full_bound_by=b_by_b, hh_full_ops=ops_b, hh_full_plain_ms=plain_b_ms,
-            hh_full_finite_lanes=int(torch.isfinite(outb).sum()), library_call="none", **timings)
-        hh_line = {"name": "nll_fwd (Kvaerno3 step, a team of threads per lane)", "route": "cuda",
-                   "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cuh",
-                   "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:722 (Kvaerno3 step, :291-364)",
-                   "launches": hh_counts["nll_fwd"],
-                   "max_abs_err": onset_r4["kernel_f32_vs_plain_f64"]["max_abs_err"],
-                   "ms": hh_ms, "plain_ms": hh_plain_ms, "plain_steps": HH_PLAIN_TIMING_STEPS,
-                   "bound_ms": hh_b_ms, "bound_by": hh_b_by, "library_ms": None}
-
-    # ---- Hodgkin-Huxley optimize through the Kvaerno3 nll_fwd and nll_bwd ----
-    with Phase("hh_grad_parity") as ph:
-        hh_grads = {key[len("grad_"):]: hh_grad_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
-                                                    **rigs[key][2])
-                 for key in ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1", "grad_onset_full", "grad_box_full")}
-        onset = hh_grads["onset_r4"]
-        ph.info.update(hh_grads)
-
-    with Phase("hh_grad_full_horizon") as ph:
-        # the main path's rig at its full horizon, 8 points of evaluate's
-        # grid: the float64 gradient in g_Na against central differences of
-        # the float64 forward kernel, and the float32 gradient against it
-        idx8 = np.linspace(0, grid.shape[0] - 1, HH_GRID_CHECK).astype(int)
-        p8 = grid[idx8]
-        row = k64.opt_rows[0]
-        ones = torch.ones(len(idx8), dtype=torch.float64, device=DEVICE)
-        stages = []
-        for stage, gam in enumerate(hh_gammas.tolist()):
-            gsv = gam ** 0.5
-            d64 = k64.grad.launch(k64.physical(p8), gsv, ones, False, k64.opt_rows)[0][row]
-            d32 = k32.grad.launch(k32.physical(p8.float()), gsv, ones.float(), False, k32.opt_rows)[0][row]
-            phys = k64.physical(p8)
-            plus, minus = phys.clone(), phys.clone()
-            plus[row] += HH_FD_REL_STEP * phys[row]
-            minus[row] -= HH_FD_REL_STEP * phys[row]
-            fd = (k64.launch(plus, gsv) - k64.launch(minus, gsv)) / (plus[row] - minus[row])
-            torch.cuda.synchronize()
-            fd_err = ((d64 - fd).abs() / (fd.abs() + 1.0)).cpu().numpy()
-            k, r = d32.double().cpu().numpy(), d64.cpu().numpy()
-            f32_err = np.abs(k - r) / (np.abs(r) + 1.0)
-            entry = {"stage": stage, "gamma": gam, "grad_f64": r.tolist(), "grad_f32": k.tolist(),
-                     "fd_max_lane_err": float(fd_err.max()), "fd_tol": HH_FD_TOL,
-                     "f32_nonfinite": int((~np.isfinite(k)).sum()),
-                     "f32_p99_lane_err": float(np.quantile(f32_err, 0.99)), "f32_max_lane_err": float(f32_err.max()),
-                     "f32_held": stage in HH_GRAD_F32_HELD_STAGES}
-            stages.append(entry)
-            if not np.isfinite(r).all() or not fd_err.max() <= HH_FD_TOL:
-                raise AssertionError(f"float64 nll_bwd disagrees with central differences of nll_fwd: {entry}")
-            if not entry["f32_held"]:
-                # the worst lane's gradients at neighbouring g_Na: float32
-                # rounding, not the kernel, if the float32 ones scatter
-                # while the float64 ones stay put
-                lane = int(np.nanargmax(np.where(np.isfinite(f32_err), f32_err, np.inf)))
-                near = p8[lane:lane + 1].repeat(8, 1)
-                phys_near = k64.physical(near)
-                phys_near[row] *= 1.0 + HH_F32_PROBE_REL * torch.arange(-4, 4, dtype=torch.float64, device=DEVICE)
-                ones8 = torch.ones(8, dtype=torch.float64, device=DEVICE)
-                entry["probe"] = {
-                    "g_na": phys_near[row].tolist(),
-                    "grad_f64": k64.grad.launch(phys_near, gsv, ones8, False, k64.opt_rows)[0][row].tolist(),
-                    "grad_f32": k32.grad.launch(phys_near.float(), gsv, ones8.float(), False,
-                                                k32.opt_rows)[0][row].tolist()}
-            if entry["f32_held"] and not entry["f32_p99_lane_err"] <= HH_GRAD_P99_F32:
-                raise AssertionError(f"float32 nll_bwd disagrees with the float64 kernel: {entry}")
-        # HH full (n = 8) on params/hodgkinhuxley7_full at its 10^4 steps with
-        # the entry points' time rule: g_Na at 0.8-1.2 times its generating
-        # value (at 56 and 80 the float64 NLL itself diverges by gamma = 1e-8),
-        # the other six optimized rows at their defaults, the float64 gradient
-        # in g_Na; a lane whose NLL is not finite must have no finite gradient
-        rig8 = build_rig(hh_full_cfg, torch.float64, torch.device(DEVICE))
-        k8 = nll_kernel.make_nll_cuda(rig8.model, rig8.solver, rig8.ekf, rig8.spec, rig8.obs, rig8.state0,
-                                      rig8.num_steps, rig8.q_sqrt, accumulate_time=True)
-        row8 = k8.cm.offsets["g_Na"]
-        phys8 = k8.physical(k8.spec.defaults_norm_opt()[None].repeat(4, 1))
-        phys8[row8] *= torch.tensor([0.8, 0.9, 1.1, 1.2], dtype=torch.float64, device=DEVICE)
-        ones4 = torch.ones(4, dtype=torch.float64, device=DEVICE)
-        full_stages = []
-        for stage, gam in enumerate(gammas_of(hh_full_cfg, torch.float64).tolist()):
-            gsv = gam ** 0.5
-            d8 = k8.grad.launch(phys8, gsv, ones4, False, (row8,))[0][row8]
-            finite = torch.isfinite(k8.launch(phys8, gsv))
-            plus, minus = phys8.clone(), phys8.clone()
-            plus[row8] += HH_FD_REL_STEP * phys8[row8]
-            minus[row8] -= HH_FD_REL_STEP * phys8[row8]
-            fd = (k8.launch(plus, gsv) - k8.launch(minus, gsv)) / (plus[row8] - minus[row8])
-            torch.cuda.synchronize()
-            fd_err = ((d8 - fd).abs() / (fd.abs() + 1.0))[finite].cpu().numpy()
-            entry = {"stage": stage, "gamma": gam, "grad_f64": d8.tolist(), "fd": fd.tolist(),
-                     "finite_lanes": int(finite.sum()), "fd_max_lane_err": float(fd_err.max(initial=0.0)),
-                     "fd_tol": HH_FD_TOL}
-            full_stages.append(entry)
-            if (not finite.any() or not torch.equal(torch.isfinite(d8), finite)
-                    or not np.isfinite(fd_err).all() or not fd_err.max() <= HH_FD_TOL):
-                raise AssertionError(f"n = 8 float64 nll_bwd disagrees with central differences of nll_fwd: {entry}")
-        ph.info.update(steps=k64.cm.n_obs, lanes=len(idx8), g_na=k64.physical(p8)[row].tolist(),
-                       fd_rel_step=HH_FD_REL_STEP, f32_p99_limit=HH_GRAD_P99_F32,
-                       f32_held_stages=list(HH_GRAD_F32_HELD_STAGES), stages=stages,
-                       hh_full={"experiment": HH_FULL_EXPERIMENT, "steps": k8.cm.n_obs, "time_rule": "running sum",
-                                "g_na": phys8[row8].tolist(), "stages": full_stages})
-
+    # ---- Hodgkin-Huxley optimize through the Kvaerno3 nll_fwd and nll_bwd, before
+    # the phases that read the HH plain references (their processes run meanwhile) ----
     hh_opt_path = OUT / "hh_optimize.npz"
     for stale in OUT.glob("hh_optimize.npz*"):
         stale.unlink()
@@ -1974,6 +2303,157 @@ def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int
                        output=str(hh_full_opt_path.relative_to(ROOT)))
     full_widest = max(u["widest"] for u in res["units"])
 
+    # ---- the Kvaerno3 nll_fwd against its plain version ----
+    with Phase("hh_parity") as ph:
+        spike_ref = plain_ref(plain_procs, "spike_x0")
+        x_spike = spike_ref["x"]
+        rigs = hh_parity_rigs(x_spike)
+        hh_parities = {key[len("parity_"):]: hh_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
+                                                  **rigs[key][2])
+                  for key in ("parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4")}
+        onset_r4 = hh_parities["onset_r4"]
+        ph.info.update(**hh_parities, spike_x0=x_spike.cpu().numpy().tolist(), spike_x0_solve_ms=spike_ref["ms"],
+                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
+
+    with Phase("hh_timing") as ph:
+        timings = {}
+        # evaluate's launch: B = 100 grid lanes, n = 4, 10^4 steps, stage 0
+        for label, kern in (("f32", k32), ("f64", k64)):
+            phys = kern.physical(grid.to(kern.cm.dtype))
+            kern.launch(phys, hh_gs0)
+            torch.cuda.synchronize()
+            timings[f"evaluate_{label}_event_ms"] = event_times(lambda: kern.launch(phys, hh_gs0), 7)
+        # optimize's widest dispatch: B = 256 lanes
+        p256 = torch.rand((256, 1), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                          dtype=torch.float32, device=DEVICE)
+        phys256 = k32.physical(p256)
+        timings["b256_f32_event_ms"] = event_times(lambda: k32.launch(phys256, hh_gs0), 7)
+        phys32 = k32.physical(grid.float())
+        _, hh_plain_ms = sync_time(lambda: nll_kernel.nll_plain(cut(k32.cm, HH_PLAIN_TIMING_STEPS), phys32, k32.ys,
+                                                                hh_gs0))
+        hh_b_ms, hh_b_by, hh_ops = bound_ms(k32.cm, grid.shape[0], phys=phys32[:, :1])
+        hh_ms = float(np.median(timings["evaluate_f32_event_ms"]))
+        # bench.py's hh_full shape: B = 512, n = 8, 10^4 steps, gamma = 0.01
+        kb = hh_bench_kernel(torch.float32)
+        pb = torch.rand((512, kb.spec.num_opt), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                        dtype=torch.float32, device=DEVICE)
+        physb = kb.physical(pb)
+        gb = float(np.sqrt(0.01))
+        outb = kb.launch(physb, gb)
+        torch.cuda.synchronize()
+        timings["hh_full_f32_event_ms"] = event_times(lambda: kb.launch(physb, gb), 7)
+        medb = float(np.median(timings["hh_full_f32_event_ms"]))
+        _, plain_b_ms = sync_time(lambda: nll_kernel.nll_plain(cut(kb.cm, HH_PLAIN_TIMING_STEPS), physb, kb.ys, gb))
+        b_ms_b, b_by_b, ops_b = bound_ms(kb.cm, 512, phys=physb[:, :1])
+        ph.info.update(
+            evaluate_shape=f"B={grid.shape[0]}, n={k32.cm.n}, L=1, d=1, n_obs={k32.cm.n_obs}, gamma^1/2={hh_gs0:.6g}",
+            evaluate_f32_ms=hh_ms, evaluate_f64_ms=float(np.median(timings["evaluate_f64_event_ms"])),
+            b256_f32_ms=float(np.median(timings["b256_f32_event_ms"])),
+            evaluate_filter_steps_per_s=grid.shape[0] * k32.cm.n_obs / (hh_ms / 1e3),
+            evaluate_bound_ms=hh_b_ms, evaluate_bound_by=hh_b_by, evaluate_ops=hh_ops,
+            evaluate_plain_ms=hh_plain_ms, plain_steps=HH_PLAIN_TIMING_STEPS,
+            hh_full_shape=f"B=512, n={kb.cm.n}, K={kb.spec.num_opt} optimized, n_obs={kb.cm.n_obs}, float32, gamma=0.01",
+            hh_full_ms=medb, hh_full_filter_steps_per_s=512 * kb.cm.n_obs / (medb / 1e3),
+            hh_full_bound_ms=b_ms_b, hh_full_bound_by=b_by_b, hh_full_ops=ops_b, hh_full_plain_ms=plain_b_ms,
+            hh_full_finite_lanes=int(torch.isfinite(outb).sum()), library_call="none", **timings)
+        hh_line = {"name": "nll_fwd (Kvaerno3 step, a team of threads per lane)", "route": "cuda",
+                   "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cuh",
+                   "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:722 (Kvaerno3 step, :291-364)",
+                   "launches": hh_counts["nll_fwd"],
+                   "max_abs_err": onset_r4["kernel_f32_vs_plain_f64"]["max_abs_err"],
+                   "ms": hh_ms, "plain_ms": hh_plain_ms, "plain_steps": HH_PLAIN_TIMING_STEPS,
+                   "bound_ms": hh_b_ms, "bound_by": hh_b_by, "library_ms": None}
+
+    # ---- the Kvaerno3 nll_bwd against its plain version and central differences ----
+    with Phase("hh_grad_parity") as ph:
+        hh_grads = {key[len("grad_"):]: hh_grad_parity(rigs[key][0], rigs[key][1], hh_gs0, plain_ref(plain_procs, key),
+                                                    **rigs[key][2])
+                 for key in ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1", "grad_onset_full", "grad_box_full")}
+        onset = hh_grads["onset_r4"]
+        ph.info.update(hh_grads)
+
+    with Phase("hh_grad_full_horizon") as ph:
+        # the main path's rig at its full horizon, 8 points of evaluate's
+        # grid: the float64 gradient in g_Na against central differences of
+        # the float64 forward kernel, and the float32 gradient against it
+        idx8 = np.linspace(0, grid.shape[0] - 1, HH_GRID_CHECK).astype(int)
+        p8 = grid[idx8]
+        row = k64.opt_rows[0]
+        ones = torch.ones(len(idx8), dtype=torch.float64, device=DEVICE)
+        stages = []
+        for stage, gam in enumerate(hh_gammas.tolist()):
+            gsv = gam ** 0.5
+            d64 = k64.grad.launch(k64.physical(p8), gsv, ones, False, k64.opt_rows)[0][row]
+            d32 = k32.grad.launch(k32.physical(p8.float()), gsv, ones.float(), False, k32.opt_rows)[0][row]
+            phys = k64.physical(p8)
+            plus, minus = phys.clone(), phys.clone()
+            plus[row] += HH_FD_REL_STEP * phys[row]
+            minus[row] -= HH_FD_REL_STEP * phys[row]
+            fd = (k64.launch(plus, gsv) - k64.launch(minus, gsv)) / (plus[row] - minus[row])
+            torch.cuda.synchronize()
+            fd_err = ((d64 - fd).abs() / (fd.abs() + 1.0)).cpu().numpy()
+            k, r = d32.double().cpu().numpy(), d64.cpu().numpy()
+            f32_err = np.abs(k - r) / (np.abs(r) + 1.0)
+            entry = {"stage": stage, "gamma": gam, "grad_f64": r.tolist(), "grad_f32": k.tolist(),
+                     "fd_max_lane_err": float(fd_err.max()), "fd_tol": HH_FD_TOL,
+                     "f32_nonfinite": int((~np.isfinite(k)).sum()),
+                     "f32_p99_lane_err": float(np.quantile(f32_err, 0.99)), "f32_max_lane_err": float(f32_err.max()),
+                     "f32_held": stage in HH_GRAD_F32_HELD_STAGES}
+            stages.append(entry)
+            if not np.isfinite(r).all() or not fd_err.max() <= HH_FD_TOL:
+                raise AssertionError(f"float64 nll_bwd disagrees with central differences of nll_fwd: {entry}")
+            if not entry["f32_held"]:
+                # the worst lane's gradients at neighbouring g_Na: float32
+                # rounding, not the kernel, if the float32 ones scatter
+                # while the float64 ones stay put
+                lane = int(np.nanargmax(np.where(np.isfinite(f32_err), f32_err, np.inf)))
+                near = p8[lane:lane + 1].repeat(8, 1)
+                phys_near = k64.physical(near)
+                phys_near[row] *= 1.0 + HH_F32_PROBE_REL * torch.arange(-4, 4, dtype=torch.float64, device=DEVICE)
+                ones8 = torch.ones(8, dtype=torch.float64, device=DEVICE)
+                entry["probe"] = {
+                    "g_na": phys_near[row].tolist(),
+                    "grad_f64": k64.grad.launch(phys_near, gsv, ones8, False, k64.opt_rows)[0][row].tolist(),
+                    "grad_f32": k32.grad.launch(phys_near.float(), gsv, ones8.float(), False,
+                                                k32.opt_rows)[0][row].tolist()}
+            if entry["f32_held"] and not entry["f32_p99_lane_err"] <= HH_GRAD_P99_F32:
+                raise AssertionError(f"float32 nll_bwd disagrees with the float64 kernel: {entry}")
+        # HH full (n = 8) on params/hodgkinhuxley7_full at its 10^4 steps with
+        # the entry points' time rule: g_Na at 0.8-1.2 times its generating
+        # value (at 56 and 80 the float64 NLL itself diverges by gamma = 1e-8),
+        # the other six optimized rows at their defaults, the float64 gradient
+        # in g_Na; a lane whose NLL is not finite must have no finite gradient
+        rig8 = build_rig(hh_full_cfg, torch.float64, torch.device(DEVICE))
+        k8 = nll_kernel.make_nll_cuda(rig8.model, rig8.solver, rig8.ekf, rig8.spec, rig8.obs, rig8.state0,
+                                      rig8.num_steps, rig8.q_sqrt, accumulate_time=True)
+        row8 = k8.cm.offsets["g_Na"]
+        phys8 = k8.physical(k8.spec.defaults_norm_opt()[None].repeat(4, 1))
+        phys8[row8] *= torch.tensor([0.8, 0.9, 1.1, 1.2], dtype=torch.float64, device=DEVICE)
+        ones4 = torch.ones(4, dtype=torch.float64, device=DEVICE)
+        full_stages = []
+        for stage, gam in enumerate(gammas_of(hh_full_cfg, torch.float64).tolist()):
+            gsv = gam ** 0.5
+            d8 = k8.grad.launch(phys8, gsv, ones4, False, (row8,))[0][row8]
+            finite = torch.isfinite(k8.launch(phys8, gsv))
+            plus, minus = phys8.clone(), phys8.clone()
+            plus[row8] += HH_FD_REL_STEP * phys8[row8]
+            minus[row8] -= HH_FD_REL_STEP * phys8[row8]
+            fd = (k8.launch(plus, gsv) - k8.launch(minus, gsv)) / (plus[row8] - minus[row8])
+            torch.cuda.synchronize()
+            fd_err = ((d8 - fd).abs() / (fd.abs() + 1.0))[finite].cpu().numpy()
+            entry = {"stage": stage, "gamma": gam, "grad_f64": d8.tolist(), "fd": fd.tolist(),
+                     "finite_lanes": int(finite.sum()), "fd_max_lane_err": float(fd_err.max(initial=0.0)),
+                     "fd_tol": HH_FD_TOL}
+            full_stages.append(entry)
+            if (not finite.any() or not torch.equal(torch.isfinite(d8), finite)
+                    or not np.isfinite(fd_err).all() or not fd_err.max() <= HH_FD_TOL):
+                raise AssertionError(f"n = 8 float64 nll_bwd disagrees with central differences of nll_fwd: {entry}")
+        ph.info.update(steps=k64.cm.n_obs, lanes=len(idx8), g_na=k64.physical(p8)[row].tolist(),
+                       fd_rel_step=HH_FD_REL_STEP, f32_p99_limit=HH_GRAD_P99_F32,
+                       f32_held_stages=list(HH_GRAD_F32_HELD_STAGES), stages=stages,
+                       hh_full={"experiment": HH_FULL_EXPERIMENT, "steps": k8.cm.n_obs, "time_rule": "running sum",
+                                "g_na": phys8[row8].tolist(), "stages": full_stages})
+
     with Phase("hh_grad_timing") as ph:
         # one nll_bwd launch as optimize makes it: its widest dispatch at the
         # first stage's gamma, the optimized row only (no d/d gamma)
@@ -2040,8 +2520,16 @@ def run_phases(refs: subprocess.Popen, plain_procs: list, t_start: float) -> int
     # ---- multi-compartment HH through make_nll + autograd (no NLL kernel) ----
     c2_phases(refs)
 
+    # ---- the device L-BFGS over the LV kernels, the baseline and tRMSE ----
+    dev_counts = device_phases(dev_refs, host_opt)
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(CARD, flush=True)
+    for line, name in ((fwd_line, "nll_fwd"), (bwd_line, "nll_bwd")):
+        by_path = {"optimize (host L-BFGS)": opt_counts[name], "device_optimize (device L-BFGS)": dev_counts[name]}
+        if name == "nll_fwd":
+            by_path = {"main_path (evaluate)": eval_launches, **by_path}
+        line.update(launches=sum(by_path.values()), launches_by_path=by_path)
     hh_line.update(launches=hh_counts["nll_fwd"] + hh_opt_counts["nll_fwd"] + full_opt_counts["nll_fwd"],
                    launches_by_path={"hh_main_path (n = 4)": hh_counts["nll_fwd"],
                                      "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],

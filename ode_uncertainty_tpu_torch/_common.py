@@ -3,8 +3,9 @@ count, the initial state, the initial covariance sqrt and the observation
 model of a config.
 
 Precision and device come from ``utils/config.apply_runtime_config``
-(``float64``, ``device``); the JAX scripts' runlock and compilation cache
-have no counterpart here.
+(``float64``, ``device``). The JAX scripts' startup run-lock check and
+compilation cache have no counterpart here (the port's ``utils/runlock.py``
+is not called by the entry points).
 """
 
 from __future__ import annotations

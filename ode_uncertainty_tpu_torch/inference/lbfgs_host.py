@@ -14,11 +14,11 @@ The division of labour is the reference's:
 :func:`lbfgs_box_host` and its helpers are host numpy, kept identical in
 behaviour to the reference (same iterates and counters on the same batched
 objective; ``tests/test_torch_optimize.py`` holds them to it), except that
-the port has no run lock: the reference yields its TPU to the benchmark
-between iterations (``utils/runlock.py``), which has no counterpart here.
-:func:`make_stage_optimizer_host` builds the batched value-and-gradient
-dispatch in PyTorch. The on-device L-BFGS (``inference/lbfgs.py``) and the
-restart-sharded mesh are not ported yet.
+the loop does not yield to a benchmark: the reference checks its run lock
+(``utils/runlock.py``) between iterations; the port has the module but its
+loop does not call it. :func:`make_stage_optimizer_host` builds the batched
+value-and-gradient dispatch in PyTorch. The device L-BFGS is
+``inference/lbfgs.py``; the restart-sharded mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ode_uncertainty_tpu_torch.inference.lbfgs import value_and_grad
 
 
 class HostLBFGSResult(NamedTuple):
@@ -698,13 +700,6 @@ def make_stage_optimizer_host(
             raise ValueError("give nll or nll_batched")
         nll_batched = lambda p, gamma_sqrt: nll(p, q_sqrt, gamma_sqrt)
 
-    def vg_batched(p: torch.Tensor, gamma_sqrt: torch.Tensor):
-        with torch.enable_grad():
-            p = p.detach().requires_grad_(True)
-            vals = nll_batched(p, gamma_sqrt)
-            (grad,) = torch.autograd.grad(vals, p, grad_outputs=torch.ones_like(vals))
-        return vals.detach(), grad
-
     def stage(p0_norm, gamma, unit_key=None):
         p0_t = torch.as_tensor(p0_norm)
         dt = dtype or p0_t.dtype
@@ -713,7 +708,7 @@ def make_stage_optimizer_host(
         f32 = dt == torch.float32
 
         def vagb(x):
-            fb, gb = vg_batched(torch.as_tensor(x, dtype=dt, device=device), gamma_sqrt)
+            fb, gb = value_and_grad(lambda p: nll_batched(p, gamma_sqrt), torch.as_tensor(x, dtype=dt, device=device))
             return fb.cpu().numpy(), gb.cpu().numpy()
 
         t0 = time.perf_counter()

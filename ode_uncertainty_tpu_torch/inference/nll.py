@@ -1,6 +1,5 @@
-"""Filter negative log-likelihood of ODE parameters (port of
-``ode_uncertainty_tpu/inference/nll.py``; the filter-free baseline NLL is not
-ported yet).
+"""Filter negative log-likelihood of ODE parameters, and the filter-free
+baseline NLL (port of ``ode_uncertainty_tpu/inference/nll.py``).
 
 Runs the square-root EKF over the time grid with a batch of candidate
 parameters and sums the innovation Gaussian NLL at every observation. The
@@ -155,5 +154,52 @@ def make_nll(
         w = (torch.abs(jac) * spec.opt_mask_full().to(jac.dtype)).sum(dim=-1)
         w = (n**0.5) * w / torch.linalg.vector_norm(w, dim=-1, keepdim=True)
         return torch.diag_embed(w)
+
+    return nll
+
+
+def make_baseline_nll(
+    model: ODEModel,
+    solver,
+    spec: ParamSpec,
+    obs: ObsModel,
+    t0,
+    x0: torch.Tensor,
+    num_steps: int,
+    x0_raw: Optional[torch.Tensor] = None,
+    initial_state_parametrized: bool = False,
+) -> Callable:
+    """Filter-free trajectory-fitting NLL (the classic least-squares
+    baseline): integrate the ODE deterministically and score the flagged
+    steps' observations under the fixed noise ``R_sqrt``.
+
+    Returns ``nll(p_norm_opt [..., P_opt]) -> [...]``. Step ``idx`` starts at
+    ``t0 + idx * h`` (the step index, as the reference's baseline computes
+    it, not the running sum of the filter's predict). Steps after the last
+    observation add nothing and are not run. Differentiable by autograd
+    (through the Kvaerno3 stage-solve rule for the implicit step).
+    """
+    flags = np.asarray(obs.flags.cpu())
+    rows = np.asarray(obs.index_map.cpu())
+    obs_steps = np.nonzero(flags[:num_steps])[0]
+    end = int(obs_steps[-1]) + 1 if len(obs_steps) else 0
+
+    def nll(p_norm_opt: torch.Tensor) -> torch.Tensor:
+        params = spec.to_params(p_norm_opt)
+        batch = p_norm_opt.shape[:-1]
+        x = x0
+        if initial_state_parametrized:
+            if x0_raw is None:
+                raise ValueError("initial_state_parametrized requires x0_raw")
+            x = model.build_initial_value(x0_raw, params).to(x0.dtype)
+        x = x.expand(*batch, *x0.shape[-2:])
+        t0_t = torch.as_tensor(t0, dtype=x0.dtype, device=x0.device)
+        total = torch.zeros(batch, dtype=x0.dtype, device=x0.device)
+        for idx in range(end):
+            x, _ = solver.step(model.rhs, params, t0_t + idx * solver.h, x)
+            if flags[idx]:
+                y_hat = x.reshape(*batch, -1) @ obs.H.T
+                total = total + nll_gaussian_sqrt(obs.ys[int(rows[idx])], y_hat, obs.R_sqrt)
+        return total
 
     return nll

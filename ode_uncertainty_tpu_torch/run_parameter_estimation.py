@@ -1,9 +1,12 @@
 """Tempered ODE parameter estimation entry point of the port (counterpart of
 ``scripts/run_parameter_estimation.py``). Subcommands:
 
-  optimize — tempered maximum likelihood from restarts with the host L-BFGS;
-             writes the reference's keys (``params_inits``, ``params_optims``,
-             ``nll_optims``, the iteration and evaluation counters, ``gammas``,
+  optimize — tempered maximum likelihood from restarts with the host L-BFGS
+             (strong Wolfe, the default) or, with ``optimizer_mode=device``,
+             the device L-BFGS (projected Armijo, ``inference/lbfgs.py``)
+             in segments (``make_stage_optimizer``); writes the reference's
+             keys (``params_inits``, ``params_optims``, ``nll_optims``, the
+             iteration and evaluation counters, ``gammas``,
              ``wall_clock_s``, ...).
   evaluate — NLL landscape over a parameter grid per tempering stage; writes
              ``param_evals``, ``nll_evals``, ``gammas`` and ``timings``.
@@ -23,6 +26,8 @@ running sum ``t += h`` in the working type, as the JAX CLI's XLA
 Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set output=out.npz]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/lotkavolterra2 --set optimizer_mode=device [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/hodgkinhuxley1_r4 \\
       --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_r4.npz [--set output=out.npz]
@@ -54,6 +59,7 @@ from ode_uncertainty_tpu_torch.inference import (
     make_param_spec,
     make_stage_optimizer_host,
 )
+from ode_uncertainty_tpu_torch.inference.estimate import make_stage_optimizer
 from ode_uncertainty_tpu_torch.ops.nll_kernel import make_nll_cuda, supports
 from ode_uncertainty_tpu_torch.utils.carry import Rig
 from ode_uncertainty_tpu_torch.utils.checkpoint import run_stage_grid
@@ -143,14 +149,10 @@ def initial_restarts(cfg, spec, dtype) -> torch.Tensor:
 
 def optimize(cfg) -> dict:
     """Tempered estimation of ``cfg``; stores and returns the results, plus
-    the route and a record of each (restart chunk x stage) unit."""
+    the route, the optimizer mode and a record of each (restart chunk x
+    stage) unit."""
     rt = apply_runtime_config(cfg)
     dtype, device = rt["dtype"], rt["device"]
-    if cfg.get("optimizer_mode", "host") == "device":
-        raise NotImplementedError(
-            "optimizer_mode=device (the on-device L-BFGS, inference/lbfgs.py) is not ported yet; "
-            "use optimizer_mode=host"
-        )
     rig = build_rig(cfg, dtype, device)
     spec = rig.spec
     gammas = gammas_of(cfg, dtype)
@@ -169,15 +171,26 @@ def optimize(cfg) -> dict:
         widths.append(p.shape[0])
         return nll_b(p, gamma_sqrt)
 
-    stage_opt = make_stage_optimizer_host(
-        None,
-        rig.q_sqrt,
-        nll_batched=counted,
-        max_iter=max_iter,
-        tol=cfg.get("lbfgs_tol", 1e-4),
-        state_prefix=str(cfg["output"]),
-        progress_every=int(cfg.get("lbfgs_progress_every", 1)),
-    )
+    # the host strong-Wolfe L-BFGS is the default; "device" runs the
+    # device L-BFGS (projected Armijo) in segments, as the JAX CLI does
+    mode = cfg.get("optimizer_mode", "host")
+    tol = cfg.get("lbfgs_tol", 1e-4)
+    if mode == "device":
+        device_stage = make_stage_optimizer(counted, max_iter=max_iter, tol=tol)
+
+        def stage_opt(p_norm, gamma, unit_key=None):
+            res = device_stage(p_norm, gamma)
+            return type(res)(*(t.cpu().numpy() for t in res))
+    else:
+        stage_opt = make_stage_optimizer_host(
+            None,
+            rig.q_sqrt,
+            nll_batched=counted,
+            max_iter=max_iter,
+            tol=tol,
+            state_prefix=str(cfg["output"]),
+            progress_every=int(cfg.get("lbfgs_progress_every", 1)),
+        )
 
     def stage(p_norm, gamma, unit_key=None):
         n0, t0 = len(widths), time.perf_counter()
@@ -220,12 +233,12 @@ def optimize(cfg) -> dict:
     # diverged restarts leave NaN rows; pick the best finite one
     best = int(np.nanargmin(np.where(np.isfinite(final_nll), final_nll, np.inf)))
     print(
-        f"optimize: {p0.shape[0]} restarts x {len(gammas)} stages in {wall:.1f}s ({route}, {device}); "
+        f"optimize: {p0.shape[0]} restarts x {len(gammas)} stages in {wall:.1f}s ({route}, {mode} L-BFGS, {device}); "
         f"best NLL {results['nll_optims'][best, -1]:.3f} at "
         f"{results['params_optims'][best, -1]} -> {cfg['output']}",
         flush=True,
     )
-    return {**results, "route": route, "units": units}
+    return {**results, "route": route, "optimizer_mode": mode, "units": units}
 
 
 def evaluate(cfg) -> dict:

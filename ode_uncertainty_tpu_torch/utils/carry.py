@@ -5,7 +5,8 @@ values of a JAX estimation rig as numpy arrays (model parameters, the
 parameter box, the initial state, the noise and observation arrays) and
 builds the port's :class:`Rig` from them, so that both packages evaluate the
 same NLL. :class:`Rig` is also what the port's entry point builds from a
-config.
+config. :func:`lbfgs_state_from_numpy` does the same for the device
+L-BFGS's state, so that a port segment resumes where a JAX segment stopped.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ode_uncertainty_tpu_torch.filters.sqrt_ekf import EKFState, SqrtEKF
+from ode_uncertainty_tpu_torch.inference.lbfgs import _State as LBFGSState
 from ode_uncertainty_tpu_torch.inference.observations import ObsModel, compact_rows
 from ode_uncertainty_tpu_torch.inference.params import ParamSpec
 from ode_uncertainty_tpu_torch.models import (
@@ -116,3 +118,15 @@ def rig_from_numpy(d: Dict, device="cuda", dtype=torch.float32) -> Rig:
         num_steps=int(d["num_steps"]),
         x0_raw=x0,
     )
+
+
+def lbfgs_state_from_numpy(d: Dict, device="cuda", dtype=torch.float64) -> LBFGSState:
+    """The port's device L-BFGS state from a JAX ``lbfgs`` state batched with
+    ``vmap`` (its fields as numpy arrays, lanes leading: ``x`` [B, P],
+    ``s_hist`` / ``y_hist`` [B, m, P], ``rho`` [B, m], the counters and
+    flags [B]). Floating fields take ``dtype``, counters int32, flags bool."""
+    kinds = {"done": torch.bool, **{k: torch.int32 for k in ("head", "count", "iters", "n_fev", "stall")}}
+    return LBFGSState(**{
+        field: torch.as_tensor(np.array(d[field]), dtype=kinds.get(field, dtype), device=device)
+        for field in LBFGSState._fields
+    })

@@ -1,5 +1,5 @@
 """Experiment-config system (port of ``ode_uncertainty_tpu/utils/config.py``
-without its JAX runtime pins and its diffrax alias).
+without its JAX runtime pins).
 
 Configs are ``class_path``/``init_args`` object graphs plus flat script
 kwargs. Class paths resolve by their last component against this package's
@@ -88,7 +88,19 @@ def _registries() -> Dict[str, Callable]:
     merged["ParticleFilter"] = _particle_filter_adapter
     merged["HodgkinHuxley"] = _hh_adapter
     merged["MultiCompartmentHodgkinHuxley"] = _mc_hh_adapter
+    merged.setdefault("DiffraxSolverBuilder", _diffrax_alias)
     return merged
+
+
+def _diffrax_alias(name: str = "Kvaerno3", step_size: float = 0.1, **kw):
+    """Maps the reference's diffrax wrapper config onto the port's solvers."""
+    from ode_uncertainty_tpu_torch.solvers import SOLVER_REGISTRY
+
+    if name not in SOLVER_REGISTRY:
+        raise ValueError(
+            f"No native equivalent for diffrax solver {name!r}; available: {sorted(SOLVER_REGISTRY)}"
+        )
+    return SOLVER_REGISTRY[name](step_size=step_size)
 
 
 def resolve_class(class_path: str) -> Callable:

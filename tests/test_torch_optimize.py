@@ -211,12 +211,17 @@ def test_initial_restarts_from_a_seeded_generator():
 
 
 def test_optimize_device_mode_is_not_ported(tmp_path):
+    # optimizer_mode=device runs the device L-BFGS on the route the host
+    # optimizer takes (tests/test_torch_device_cli.py holds it to JAX's CLI)
     from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment
 
     cfg = build_config(load_experiment("params/lotkavolterra2"),
-                       {"device": "cpu", "optimizer_mode": "device", "output": str(tmp_path / "x.npz")})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        optimize(cfg)
+                       {"device": "cpu", "optimizer_mode": "device", "output": str(tmp_path / "x.npz"),
+                        "tN": 0.05, "num_random_runs": 0, "num_tempering_stages": 2, "lbfgs_maxiter": 2})
+    res = optimize(cfg)
+    assert res["optimizer_mode"] == "device" and res["route"] == "nll_fwd + nll_bwd kernels"
+    assert res["params_optims"].shape == (1, 2, 2) and (res["num_lbfgs_iters"] <= 2).all()
+    assert [u["dispatches"] for u in res["units"]] and all(u["widest"] == 1 for u in res["units"])
 
 
 def _run(args, cwd, home, timeout=300):
