@@ -24,7 +24,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   on 256 lanes, half at gamma^1/2 = 0.1 and half at 0, every
                   parameter row and each lane's d/d gamma^1/2: the
                   lotkavolterra2 rig at its full 2000 steps, the bench.py LV
-                  rig cut to 600 steps (the plain gradient takes ~45 s per
+                  rig cut to 400 steps (the plain gradient takes ~45 s per
                   2000 steps on the card). float64 kernel vs float64
                   plain: max relative error <= 1e-8 (an element whose plain value
                   is 0 relative to the largest); float32 kernel vs float64
@@ -91,7 +91,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   optimize's widest dispatch (B = 256, f32) and at bench.py's
                   hh_full shape (B = 512, n = 8, 10^4 steps, f32), median of
                   7, beside the operation bound and the plain version at a
-                  cut horizon of 20 steps.
+                  cut horizon of HH_PLAIN_TIMING_STEPS (5) steps.
  13. hh_grad_parity  the Kvaerno3 nll_bwd (float64 and float32) against its
                   float64 plain version (on the host's CPU) on the 200-step
                   reduced-4 onset (t0 = 9.9) and spike (t0 = 23.5) rigs, 64
@@ -153,12 +153,12 @@ Phases, each printing one JSON line with its own wall seconds:
  17. hh_grad_timing  one Kvaerno3 nll_bwd launch at hh_optimize's widest
                   dispatch, median of 7: float32 on the optimized row, with
                   d/d gamma^1/2, and in float64 without and with it; beside
-                  the bound and the plain gradient at a cut horizon of 20
+                  the bound and the plain gradient at a cut horizon of 5
                   steps. The n = 8 gradient at hh_full_optimize's widest
                   dispatch on its 7 rows (float32 and float64) and at
                   bench.py's hh_full shape (B = 512, 11 rows, float32),
-                  median of 3, each beside its bound and its plain version
-                  at HH_N8_PLAIN_TIMING_STEPS steps.
+                  median of HH_FULL_TIMING_REPS (2), each beside its bound
+                  and its plain version at HH_N8_PLAIN_TIMING_STEPS steps.
  18. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
                   (Dopri65) and noise_gt/lotkavolterra (Kvaerno3, noise of
                   variance 0.1 from a torch.Generator on the card), cut to
@@ -262,10 +262,44 @@ Phases, each printing one JSON line with its own wall seconds:
                   rows, 2000 steps), float64 card against float64 CPU: the
                   non-finite rows coincide, values, mean and std at rtol
                   1e-9; both times.
-                  The CPU float64 runs of phases 26 and 27 come from a
+                  The CPU float64 runs of phases 26, 27 and 33 come from a
                   process of their own (one thread) started with the others,
                   once the observations exist.
- 29. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+ 29. mesh_host    the host L-BFGS's `mesh=` (parallel/mesh.py): every stage
+                  of params/lotkavolterra2 at full size (100 restarts from
+                  the CLI's seeded generator, 4 stages, 2000 steps, float32,
+                  lbfgs_maxiter 200, the synthesized observations) through
+                  make_stage_optimizer_host over the LV kernels' wrapper
+                  built on each device, once on device_mesh() (every visible
+                  card) and once on MESH_SHARDS (4) shards (four cards, or
+                  four streams of cuda:0 on a one-card machine); each held
+                  per lane, bit for bit on x, f, iterations and evaluations,
+                  to the unsharded host optimizer from the same restarts.
+                  Wall seconds, dispatches and the kernels' summed device
+                  seconds reported beside the unsharded run's.
+ 30. mesh_device  make_sharded_tempered_estimator over the same wrapper on 4
+                  shards, gammas 1e-2 and 0, max_iter 25: every lane's
+                  iterations and evaluations equal to the unsharded
+                  make_tempered_estimator's, x within 1e-8 (normalized box).
+ 31. mesh_landscape  make_sharded_nll_landscape on 4 shards over evaluate's
+                  20 x 20 grid at its 4 gammas: bit for bit
+                  make_nll_landscape's, 16 launches.
+ 32. measure_scaling  `python -m ode_uncertainty_tpu_torch.measure_scaling
+                  --path host --devices 1,2,4 --per-device 16` on the card:
+                  its lines, each finite and naming its cards.
+ 33. diag_nan_lanes  the committed results/params/hodgkinhuxley11_full.h5
+                  (its npz copy) re-evaluated at its non-finite lanes' stage
+                  entry points in float32 and float64 through the n = 8
+                  nll_fwd at 10^4 steps: the classification per lane, the
+                  launches and seconds; at DIAG_CUT_STEPS (20) steps the
+                  float64 card against the float64 plain version on the
+                  CPU (the device reference process) at rtol 1e-9 on the
+                  lanes that are finite in float64.
+ 34. compare_optimizer  `compare_optimizer --restarts 8 --maxiter 25` on
+                  params/lotkavolterra2 (float64 on the card, the
+                  synthesized observations): the table; the host and device
+                  rows' best NLL finite.
+ 35. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
                   Kvaerno3 step for n = 4, 7 and 8; launches by path), the
                   nvidia-smi line, then the device line. The solution paths,
@@ -301,17 +335,24 @@ from ode_uncertainty_tpu_torch.filters import SqrtEKF
 from ode_uncertainty_tpu_torch.inference import make_obs_model, make_param_spec
 from ode_uncertainty_tpu_torch.ops import const_diag
 from ode_uncertainty_tpu_torch.ops import nll_kernel
-from ode_uncertainty_tpu_torch import compute_trmse
+from ode_uncertainty_tpu_torch import compare_optimizer, compute_trmse, diag_nan_lanes, measure_scaling
 from ode_uncertainty_tpu_torch._common import num_steps_of
 from ode_uncertainty_tpu_torch import run_parameter_estimation as rpe
 from ode_uncertainty_tpu_torch import run_parameter_estimation_baseline as rpeb
 from ode_uncertainty_tpu_torch.inference import LBFGSResult, lbfgs_box
+from ode_uncertainty_tpu_torch.inference import make_nll_landscape, make_stage_optimizer_host, make_tempered_estimator
 from ode_uncertainty_tpu_torch.inference.estimate import make_stage_optimizer
+from ode_uncertainty_tpu_torch.parallel import (
+    device_mesh,
+    make_sharded_nll_landscape,
+    make_sharded_tempered_estimator,
+)
 from ode_uncertainty_tpu_torch.run_parameter_estimation import build_rig, evaluate, gammas_of, optimize
 from ode_uncertainty_tpu_torch.utils.autograd_probe import nll_of, peak_memory, rig_at, step_times, synced
 from ode_uncertainty_tpu_torch.utils.autograd_probe import points as probe_points
 from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment, parse_literal
 from ode_uncertainty_tpu_torch.utils.cuda_build import build_library
+from ode_uncertainty_tpu_torch.utils.mesh_probe import Objective
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -324,7 +365,7 @@ P99_F32 = 2e-4
 GRAD_LANES = 256
 GRAD_RTOL_F64 = 1e-8
 GRAD_P99_F32 = 5e-3
-BENCH_GRAD_STEPS = 600  # the bench rig's horizon in grad parity
+BENCH_GRAD_STEPS = 400  # the bench rig's horizon in grad parity (600 before the mesh phases)
 PLAIN_TIMING_STEPS = 200  # the plain versions are timed at this cut horizon
 HH_EXPERIMENT = "params/hodgkinhuxley1_r4"
 HH_DATA = ROOT / "ode_uncertainty_tpu_torch" / "data"
@@ -336,10 +377,12 @@ HH_FULL_RIG_STEPS = 50
 HH_PARITY_LANES = 256
 HH_P99_F32 = 5e-4  # the implicit value tolerance of tests/test_pallas_ekf.py:314
 HH_GRID_CHECK = 8
-HH_PLAIN_TIMING_STEPS = 20  # the Kvaerno3 plain version costs ~0.2 s a step on the card
+# the Kvaerno3 plain version costs ~0.2 s a step on the card (~0.5 s at n = 8);
+# its timing horizon, cut from 20 steps to 5 to make room for the mesh phases
+HH_PLAIN_TIMING_STEPS = 5
 # the n = 8 plain gradient's timing horizon: ~0.6 s a step on the card (16 s
 # for 20 steps, three timings), cut to make room for the later phases
-HH_N8_PLAIN_TIMING_STEPS = 3
+HH_N8_PLAIN_TIMING_STEPS = 2  # 3 before the mesh phases
 HH_GNA_TRUE = 25.0  # the generating g_Na (models/hodgkin_huxley.py _SINGLE_DEFAULTS)
 HH_GRAD_LANES = 64
 HH_GRAD_P99_F32 = 1e-2  # the implicit gradient rtol of tests/test_pallas_ekf.py:319
@@ -355,10 +398,12 @@ HH_GRAD_F32_HELD_STAGES = (1, 2, 3)
 HH_F32_PROBE_REL = 1e-6
 # hh_optimize's depth: the experiment's 200 took 336 s on the card (a
 # straggler ran stage 2 to 113 iterations, 245 s), 40 took 84 s; cut to 20
-# to keep the script well inside its 1,200 s limit. The width (100
+# to keep the script well inside its 1,200 s limit, to 12 to make room for
+# the mesh phases, then 10 (at 20, 78 lanes of stage 1 reached the limit
+# and the other stages' medians were 9-10 iterations). The width (100
 # restarts, 4 stages, 10^4 steps, float32, the real observations) is not
 # cut.
-HH_LBFGS_MAXITER = 20
+HH_LBFGS_MAXITER = 10
 HH_FULL_EXPERIMENT = "params/hodgkinhuxley7_full"
 # horizon of hh_grad_parity's n = 7 and n = 8 rigs (64 lanes, every row): the
 # float64 plain gradient, and on the g_Na rigs the float32 one, take 20-30 s
@@ -373,7 +418,7 @@ HH_FULL_GRAD_RIG_STEPS = 60
 # width (100 restarts, 4 stages, 10^4 steps, 7 rows, float32, the real
 # observations) is not cut.
 HH_FULL_LBFGS_MAXITER = 10
-HH_FULL_TIMING_REPS = 3  # CUDA-event timings of the n = 8 gradient (about a second each)
+HH_FULL_TIMING_REPS = 2  # CUDA-event timings of the n = 8 gradient (about a second each; 3 before PR 15)
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth, non-tensor float32 and float64 FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -1134,9 +1179,11 @@ LORENZ_HELD_STEPS = 1000
 # (h = 1e-4, tN 80) and noise_gt/lotkavolterra 200,000 Kvaerno3 steps, at
 # 1.67 ms and 7.8 ms a step on the card (the solve runs eagerly; measured
 # on one H100): hours at full depth, so both are cut to keep the phase
-# within about 15 s (the solvers, the step and the state are the configs')
-ODE_GT_STEPS = 5_000
-ODE_NOISE_STEPS = 1_000
+# within about 15 s (the solvers, the step and the state are the configs');
+# the Dopri65 solve cut from 5,000 steps to 2,500 to make room for the mesh
+# phases
+ODE_GT_STEPS = 2_500
+ODE_NOISE_STEPS = 500  # 1,000 before the mesh phases
 EXT_FILTERS = {"DenseEKF": "EKF", "UKF": "UKF", "SqrtUKF": "UKF_SQRT", "GMMSqrtEKF": "GMM_EKF"}
 GT_NPZ = ROOT / "ode_uncertainty_tpu_torch" / "data" / "gt_lotkavolterra.npz"
 REF_THREADS = 2  # CPU threads of the float64 reference process
@@ -1386,15 +1433,16 @@ C2_DATA = HH_DATA / "hodgkinhuxley_c2_r4.npz"
 # utils/autograd_probe.py on one H100), so the c2 phases run short horizons.
 C2_T0 = 9.9  # the running sum t += h reaches the stimulus onset (t = 10) at step 11
 # the script's 1,200 s limit sets these depths: the rig runs two steps past
-# the onset, c2_optimize (one step) stops before it, the timings and the
-# memory probes run 1 and 2 steps
+# the onset, c2_optimize (one step) stops before it, the timings run 1
+# step and the memory probes 2
 C2_RIG_STEPS = 13
 C2_POINTS = 4
 C2_LANES = 100
 C2_FD_STEP = 1e-5
 C2_FD_TOL = 1e-4  # |autograd - differences| / (|differences| + 1)
 C2_TIMING_STEPS = 1
-C2_MEMORY_HORIZONS = (1, 2)
+# (1, 2) before the mesh phases: at 1 and 2 steps both probes held 97.97 MiB
+C2_MEMORY_HORIZONS = (1,)
 C2_OPT_STEPS = 1  # c2_optimize's horizon: the experiment's is 10^4 steps
 C2_LBFGS_MAXITER = 2  # the experiment's is 200
 
@@ -1671,13 +1719,15 @@ def baseline_checks(device: str) -> dict:
 
 
 def device_references(out_dir: Path) -> None:
-    """The CPU float64 runs of device_parity and of the baseline's checks,
-    each saved as ``<key>.npz`` in ``out_dir``; waits for the synthesized
-    observations. Runs in a process of its own beside the card phases."""
+    """The CPU float64 runs of diag_nan_lanes' cut horizon, of device_parity
+    and of the baseline's checks, each saved as ``<key>.npz`` in
+    ``out_dir``; waits for the synthesized observations. Runs in a process
+    of its own beside the card phases."""
     torch.set_num_threads(1)
     while not LV2_OBS.exists():
         time.sleep(0.5)
-    for key, run in (("baseline", baseline_checks), ("device_parity", device_parity_run)):
+    for key, run in (("diag_nan_lanes", diag_cut_values), ("baseline", baseline_checks),
+                     ("device_parity", device_parity_run)):
         tmp = out_dir / f"{key}.tmp.npz"
         np.savez(tmp, **run("cpu"))
         tmp.replace(out_dir / f"{key}.npz")
@@ -1887,6 +1937,202 @@ def trmse_phase() -> None:
         ph.info.update(rows=int(fin.size), steps=steps_of(tcfg), finite_rows=int(fin.sum()), max_rel_err_vs_cpu_f64=max_rel,
                        rtol=RTOL_F64, trmse_mean=float(got["trmse_mean"]), trmse_std=float(got["trmse_std"]),
                        card_f64_s=runs[DEVICE][1], cpu_f64_s=runs["cpu"][1], source=str(dev_path.relative_to(ROOT)))
+
+
+# ---- restart sharding over devices (parallel/mesh.py) and the ported scripts ----
+MESH_SHARDS = 4
+MESH_DEVICE_GAMMAS = (1e-2, 0.0)  # mesh_device's stages (measure_scaling's first gamma, then 0)
+MESH_DEVICE_MAX_ITER = 25
+DIAG_EXPERIMENT = "params/hodgkinhuxley11_full"
+DIAG_RESULT = HH_DATA / "hodgkinhuxley11_full_result.npz"  # results/params/hodgkinhuxley11_full.h5 as npz
+DIAG_CUT_STEPS = 20  # diag_nan_lanes' float64 card-against-CPU horizon (the experiment's: 10^4)
+
+
+def diag_config(device: str, steps: int = None):
+    over = {"device": device, "y_path": str(HH_DATA / "hodgkinhuxley_full.npz"),
+            "parameter_estimates_input": str(DIAG_RESULT)}
+    if steps is not None:
+        over["tN"] = (steps - 0.5) * 0.01
+    return build_config(load_experiment(DIAG_EXPERIMENT), over)
+
+
+def diag_cut_values(device: str) -> dict:
+    """diag_nan_lanes' float64 evaluator at DIAG_CUT_STEPS steps on every
+    re-evaluated point at its stage's gamma (the kernel on the card, the
+    plain version on the CPU)."""
+    cfg = diag_config(device, DIAG_CUT_STEPS)
+    cases = diag_nan_lanes.nan_cases(np.load(DIAG_RESULT))
+    vals = diag_nan_lanes.evaluate(diag_nan_lanes.build_nll(cfg, torch.float64), cases)
+    return {"lanes": np.array([c[0] for c in cases]), "values": vals}
+
+
+def four_shards() -> list:
+    """MESH_SHARDS shards: one per card where there are that many, else all
+    on cuda:0 (each on a stream of its own)."""
+    n = torch.cuda.device_count()
+    return [torch.device(f"cuda:{k}") for k in range(MESH_SHARDS)] if n >= MESH_SHARDS else [torch.device("cuda:0")] * MESH_SHARDS
+
+
+def mesh_label(mesh) -> dict:
+    return {"shards": len(mesh), "devices": [str(d) for d in mesh.devices],
+            "cards": [f"{d} {torch.cuda.get_device_name(d)}" for d in mesh.distinct]}
+
+
+def host_stages(stage_fn, p0: np.ndarray, gammas) -> dict:
+    """Every tempering stage of a host stage optimizer from p0, each from the
+    previous stage's optima: x, f, iters, n_fev stacked [R, S, ...]."""
+    x, outs = p0, []
+    for gam in gammas:
+        res = stage_fn(x, float(gam))
+        outs.append(res)
+        x = res.x
+    return {field: np.stack([getattr(o, field) for o in outs], axis=1) for field in ("x", "f", "iters", "n_fev")}
+
+
+def mesh_phases(dev_refs: subprocess.Popen) -> dict:
+    """The mesh_host, mesh_device, mesh_landscape, measure_scaling,
+    diag_nan_lanes and compare_optimizer phases (see the module note).
+    Returns each phase's launch counts."""
+    counts = {}
+    cfg = cut_config("params/lotkavolterra2", DEVICE, False)
+    gammas = gammas_of(cfg, torch.float32).cpu()
+    spec = build_rig(cfg, torch.float32, torch.device(DEVICE)).spec
+    p0 = rpe.initial_restarts(cfg, spec, torch.float32)
+    q = torch.eye(2)
+    max_iter, tol = cfg["lbfgs_maxiter"], cfg.get("lbfgs_tol", 1e-4)
+
+    with Phase("mesh_host") as ph:
+        # the unsharded host optimizer on the same restarts, then a mesh of
+        # every visible card and a mesh of MESH_SHARDS shards
+        plain_on = Objective(cfg)
+        kern = plain_on(DEVICE)
+        t0 = time.perf_counter()
+        with LaunchTimer() as timer:
+            plain_stage = make_stage_optimizer_host(None, q, nll_batched=lambda p, gs: kern(p, q, gs),
+                                                    max_iter=max_iter, tol=tol, dtype=torch.float32, progress_every=0)
+            ref = host_stages(lambda x, g: plain_stage(torch.as_tensor(x, device=DEVICE), g), p0.cpu().numpy(), gammas)
+        plain = {"wall_s": time.perf_counter() - t0, "dispatches": len(plain_on.widths),
+                 "kernel_share": sum(timer.seconds().values()) / (time.perf_counter() - t0)}
+        runs = {}
+        nll_kernel.reset_launches()
+        for label, mesh in (("all_cards", device_mesh()), (f"{MESH_SHARDS}_shards", device_mesh(devices=four_shards()))):
+            on = Objective(cfg)
+            stage = make_stage_optimizer_host(on, q, max_iter=max_iter, tol=tol, dtype=torch.float32, mesh=mesh,
+                                              progress_every=0)
+            t0 = time.perf_counter()
+            with LaunchTimer() as timer:
+                got = host_stages(stage, p0.cpu().numpy(), gammas)
+            wall = time.perf_counter() - t0
+            same = {field: bool(np.array_equal(got[field], ref[field], equal_nan=got[field].dtype.kind == "f"))
+                    for field in got}
+            if not all(same.values()):
+                lanes = np.nonzero((got["n_fev"] != ref["n_fev"]).any(axis=1) | (got["f"] != ref["f"]).any(axis=1))[0]
+                raise AssertionError(f"mesh_host {label} differs from the unsharded host optimizer: {same}, "
+                                     f"lanes {lanes.tolist()[:10]}")
+            kernel_s = timer.seconds()
+            runs[label] = {**mesh_label(mesh), "wall_s": wall, "shard_calls": len(on.widths),
+                           "dispatches": len(on.widths) // len(mesh), "widest_shard": max(on.widths),
+                           "kernel_seconds_summed": kernel_s, "kernel_share_summed": sum(kernel_s.values()) / wall,
+                           "bit_equal_to_unsharded": same}
+        counts["mesh_host"] = dict(nll_kernel.launches)
+        if min(counts["mesh_host"].values()) <= 0:
+            raise AssertionError(f"mesh_host launched no kernel: {counts['mesh_host']}")
+        final = ref["f"][:, -1]
+        ph.info.update(experiment="params/lotkavolterra2", restarts=len(p0), stages=len(gammas), steps=steps_of(cfg),
+                       dtype="float32", lbfgs_maxiter=max_iter, unsharded=plain, meshes=runs,
+                       launches=counts["mesh_host"], finite_final=int(np.isfinite(final).sum()),
+                       best_final_nll=float(np.nanmin(final)))
+
+    with Phase("mesh_device") as ph:
+        on_plain, on_mesh = Objective(cfg), Objective(cfg)
+        gam = torch.tensor(MESH_DEVICE_GAMMAS, dtype=torch.float32)
+        kern = on_plain(DEVICE)
+        p0_dev = p0.to(DEVICE)
+        t0 = time.perf_counter()
+        ref = make_tempered_estimator(lambda p, gs: kern(p, q, gs), spec, max_iter=MESH_DEVICE_MAX_ITER, tol=tol)(
+            p0_dev, gam)
+        plain_s = time.perf_counter() - t0
+        mesh = device_mesh(devices=four_shards())
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        got = make_sharded_tempered_estimator(on_mesh, spec, q, mesh, max_iter=MESH_DEVICE_MAX_ITER, tol=tol)(p0, gam)
+        wall = time.perf_counter() - t0
+        counts["mesh_device"] = dict(nll_kernel.launches)
+        x_err = float(np.nanmax(np.abs(got.params_optims - ref.params_optims)
+                                / (spec.maxs_flat - spec.mins_flat)[spec.opt_indices].cpu().numpy()))
+        counters = {f: bool(np.array_equal(getattr(got, f), getattr(ref, f))) for f in ("num_lbfgs_iters", "num_nll_evals")}
+        if not all(counters.values()) or not x_err <= DEVICE_PARITY_X_ATOL:
+            raise AssertionError(f"mesh_device differs from the unsharded estimator: {counters}, x {x_err}")
+        if min(counts["mesh_device"].values()) <= 0:
+            raise AssertionError(f"mesh_device launched no kernel: {counts['mesh_device']}")
+        ph.info.update(**mesh_label(mesh), restarts=len(p0), gammas=list(MESH_DEVICE_GAMMAS),
+                       max_iter=MESH_DEVICE_MAX_ITER, steps=steps_of(cfg), dtype="float32", counters_equal=counters,
+                       x_max_abs_err_normalized=x_err, x_atol=DEVICE_PARITY_X_ATOL,
+                       f_bit_equal=bool(np.array_equal(got.nll_optims, ref.nll_optims, equal_nan=True)), wall_s=wall,
+                       unsharded_wall_s=plain_s, shard_calls=len(on_mesh.widths), unsharded_calls=len(on_plain.widths),
+                       launches=counts["mesh_device"])
+
+    with Phase("mesh_landscape") as ph:
+        grid = torch.as_tensor(np.stack(np.meshgrid(*[np.linspace(0.0, 1.0, 20)] * 2, indexing="ij"), -1)
+                               .reshape(-1, 2), dtype=torch.float32)
+        on = Objective(cfg)
+        kern = on(DEVICE)
+        ref = make_nll_landscape(kern, q.to(DEVICE), batch_size=256)(grid.to(DEVICE), gammas).cpu()
+        mesh = device_mesh(devices=four_shards())
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        got = make_sharded_nll_landscape(on, q, mesh)(grid, gammas)
+        wall = time.perf_counter() - t0
+        counts["mesh_landscape"] = dict(nll_kernel.launches)
+        if got.shape != (4, 400) or not np.array_equal(got.numpy(), ref.numpy(), equal_nan=True):
+            raise AssertionError(f"mesh_landscape differs from make_nll_landscape: {got.shape}, "
+                                 f"{(got - ref).abs().max() if got.shape == ref.shape else None}")
+        if counts["mesh_landscape"]["nll_fwd"] != 4 * MESH_SHARDS:
+            raise AssertionError(f"mesh_landscape launches {counts['mesh_landscape']}")
+        ph.info.update(**mesh_label(mesh), grid=400, stages=len(gammas), bit_equal=True, wall_s=wall,
+                       launches=counts["mesh_landscape"])
+
+    with Phase("measure_scaling") as ph:
+        nll_kernel.reset_launches()
+        rows = measure_scaling.main(["--path", "host", "--devices", "1,2,4", "--per-device", "16"])
+        counts["measure_scaling"] = dict(nll_kernel.launches)
+        for row in rows:
+            if not (row["finite"] and np.isfinite([row["wall_s"], row["partition_overhead"]]).all() and row["cards"]):
+                raise AssertionError(f"measure_scaling: {row}")
+        ph.info.update(rows=rows, launches=counts["measure_scaling"])
+
+    with Phase("diag_nan_lanes") as ph:
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        rows = diag_nan_lanes.run(diag_config(DEVICE))
+        wall = time.perf_counter() - t0
+        counts["diag_nan_lanes"] = dict(nll_kernel.launches)
+        if not rows or counts["diag_nan_lanes"]["nll_fwd"] <= 0:
+            raise AssertionError(f"diag_nan_lanes: {len(rows)} lanes, launches {counts['diag_nan_lanes']}")
+        got = diag_cut_values(DEVICE)
+        ref = device_ref(dev_refs, "diag_nan_lanes")
+        held = np.array([np.isfinite(r["nll_f64"]) for r in rows])
+        rel = np.abs(got["values"][held] - ref["values"][held]) / np.abs(ref["values"][held])
+        if not np.array_equal(got["lanes"], ref["lanes"]) or not (rel.max(initial=0.0) <= RTOL_F64):
+            raise AssertionError(f"diag_nan_lanes: card and CPU float64 differ at {DIAG_CUT_STEPS} steps: {rel}")
+        ph.info.update(experiment=DIAG_EXPERIMENT, result=str(DIAG_RESULT.relative_to(ROOT)), lanes=rows,
+                       launches=counts["diag_nan_lanes"], seconds_full_horizon=wall,
+                       held_lanes=int(held.sum()), cut_steps=DIAG_CUT_STEPS,
+                       f64_max_rel_err_vs_cpu_plain=float(rel.max(initial=0.0)), rtol=RTOL_F64,
+                       cpu_waited_s=ref["waited_s"])
+
+    with Phase("compare_optimizer") as ph:
+        nll_kernel.reset_launches()
+        out = compare_optimizer.main(["--experiment", "params/lotkavolterra2", "--restarts", "8", "--maxiter", "25",
+                                      "--set", f"y_path={LV2_OBS}"])
+        counts["compare_optimizer"] = dict(nll_kernel.launches)
+        rows = {r[0]: dict(zip(compare_optimizer.HEADER[1:], r[1:])) for r in out["rows"]}
+        for name in ("host L-BFGS (ours)", "device L-BFGS (ours)"):
+            if not np.isfinite(rows[name]["best_nll"]):
+                raise AssertionError(f"compare_optimizer: {name} best NLL {rows[name]['best_nll']}")
+        ph.info.update(device=out["device"], dtype="float64", restarts=8, maxiter=25, stages=len(out["gammas"]),
+                       rows=rows, launches=counts["compare_optimizer"])
+    return counts
 
 
 def main() -> int:
@@ -2523,17 +2769,22 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
     # ---- the device L-BFGS over the LV kernels, the baseline and tRMSE ----
     dev_counts = device_phases(dev_refs, host_opt)
 
+    # ---- restart sharding and the ported scripts (rows 1 and 3; row 2 in diag_nan_lanes) ----
+    mesh_counts = mesh_phases(dev_refs)
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(CARD, flush=True)
+    lv_mesh = ("mesh_host", "mesh_device", "mesh_landscape", "measure_scaling", "compare_optimizer")
     for line, name in ((fwd_line, "nll_fwd"), (bwd_line, "nll_bwd")):
-        by_path = {"optimize (host L-BFGS)": opt_counts[name], "device_optimize (device L-BFGS)": dev_counts[name]}
+        by_path = {"optimize (host L-BFGS)": opt_counts[name], "device_optimize (device L-BFGS)": dev_counts[name],
+                   **{phase: mesh_counts[phase][name] for phase in lv_mesh}}
         if name == "nll_fwd":
             by_path = {"main_path (evaluate)": eval_launches, **by_path}
         line.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    hh_line.update(launches=hh_counts["nll_fwd"] + hh_opt_counts["nll_fwd"] + full_opt_counts["nll_fwd"],
-                   launches_by_path={"hh_main_path (n = 4)": hh_counts["nll_fwd"],
-                                     "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],
-                                     "hh_full_optimize (n = 8)": full_opt_counts["nll_fwd"]})
+    hh_by_path = {"hh_main_path (n = 4)": hh_counts["nll_fwd"], "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],
+                  "hh_full_optimize (n = 8)": full_opt_counts["nll_fwd"],
+                  "diag_nan_lanes (n = 8)": mesh_counts["diag_nan_lanes"]["nll_fwd"]}
+    hh_line.update(launches=sum(hh_by_path.values()), launches_by_path=hh_by_path)
     emit({"kernels": [fwd_line, hh_line, bwd_line, hh_bwd_line]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

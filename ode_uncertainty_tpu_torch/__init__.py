@@ -15,11 +15,19 @@ against in ``tests/test_torch_*.py``:
   * ``inference`` — parameter box, observations, the tempered NLL, the NLL
                     landscape, the host L-BFGS, the trajectory drivers and
                     the calibration sweep.
+  * ``parallel``  — restart sharding over several devices: the mesh, the
+                    sharded tempered estimator and NLL landscape, and the
+                    sharded dispatch of the host L-BFGS (``mesh=``).
   * ``utils``     — H5 IO, config instantiation, the loop (with CUDA graphs
                     on the card), the kernel build.
 
 Entry points: ``run_parameter_estimation`` (optimize, evaluate),
-``run_ode_solver``, ``run_filter`` and ``run_calibration``.
+``run_parameter_estimation_baseline``, ``compute_trmse``,
+``run_ode_solver``, ``run_filter`` and ``run_calibration``; the tools
+``measure_scaling`` (weak scaling of the mesh), ``compare_optimizer``
+(the L-BFGS optimizers against scipy's L-BFGS-B), ``diag_nan_lanes``
+(classifies diverged restarts), ``report_estimation`` and
+``results_inventory`` (host-only reports of results).
 
 Tensors carry an explicit leading batch dimension where the JAX package used
 ``vmap``. Entry points run on ``device="cuda"`` unless the caller passes

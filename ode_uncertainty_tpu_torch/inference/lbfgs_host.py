@@ -17,8 +17,9 @@ objective; ``tests/test_torch_optimize.py`` holds them to it), except that
 the loop does not yield to a benchmark: the reference checks its run lock
 (``utils/runlock.py``) between iterations; the port has the module but its
 loop does not call it. :func:`make_stage_optimizer_host` builds the batched
-value-and-gradient dispatch in PyTorch. The device L-BFGS is
-``inference/lbfgs.py``; the restart-sharded mesh is not ported yet.
+value-and-gradient dispatch in PyTorch, on one device or split over a mesh
+of devices (``parallel/mesh.py``). The device L-BFGS is
+``inference/lbfgs.py``.
 """
 
 from __future__ import annotations
@@ -688,14 +689,29 @@ def make_stage_optimizer_host(
     checkpointed every iteration to ``<state_prefix>.lbfgs-<unit_key>.npz``
     and a rerun resumes mid-stage.
 
+    With ``mesh`` (a :class:`~ode_uncertainty_tpu_torch.parallel.mesh.Mesh`),
+    every dispatch is split over the mesh's devices: ``nll`` is then a
+    factory, ``nll(device)`` returning the objective ``(p_b, q_sqrt,
+    gamma_sqrt) -> [B]`` on that device (called once per device), and
+    ``q_sqrt`` is copied once to each device. Dispatch widths are padded up
+    to a multiple of the mesh size with copies of row 0 (composing with
+    bucket compaction); each shard's value and gradient run on its device,
+    all launched before any is read back; the host bookkeeping is the same.
+    ``nll_batched`` and ``mesh`` are mutually exclusive.
+
     The line search tries one step per dispatch on the CPU and a ladder of 8
     on the card (``ODEUQ_LS_TRIALS`` overrides; ``ODEUQ_LS_WIDTH_CAP`` caps
     the ladder's dispatch width, 256 by default), as the reference does on
     its CPU and accelerator backends.
     """
+    sharded_vg = None
     if mesh is not None:
-        raise NotImplementedError("the restart-sharded mesh is not ported yet")
-    if nll_batched is None:
+        if nll_batched is not None:
+            raise ValueError("nll_batched and mesh are mutually exclusive")
+        from ode_uncertainty_tpu_torch.parallel.mesh import make_sharded_value_and_grad
+
+        sharded_vg = make_sharded_value_and_grad(nll, q_sqrt, mesh)
+    elif nll_batched is None:
         if nll is None:
             raise ValueError("give nll or nll_batched")
         nll_batched = lambda p, gamma_sqrt: nll(p, q_sqrt, gamma_sqrt)
@@ -708,6 +724,8 @@ def make_stage_optimizer_host(
         f32 = dt == torch.float32
 
         def vagb(x):
+            if sharded_vg is not None:
+                return sharded_vg(x, gamma, dt)
             fb, gb = value_and_grad(lambda p: nll_batched(p, gamma_sqrt), torch.as_tensor(x, dtype=dt, device=device))
             return fb.cpu().numpy(), gb.cpu().numpy()
 
@@ -736,7 +754,8 @@ def make_stage_optimizer_host(
         # On the CPU the extra trial rows of a ladder cost linearly, so the
         # sequential search stays the CPU default; on the card a dispatch's
         # time barely depends on its width.
-        default_trials = "1" if device.type == "cpu" else "8"
+        on_cpu = (mesh.devices[0] if mesh is not None else device).type == "cpu"
+        default_trials = "1" if on_cpu else "8"
         return lbfgs_box_host(
             vagb,
             p0_t.detach().cpu().numpy().astype(np.float64),

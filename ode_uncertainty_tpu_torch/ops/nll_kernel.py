@@ -50,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import importlib
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,12 +67,22 @@ from ode_uncertainty_tpu_torch.utils.cuda_build import load_library
 hh = importlib.import_module("ode_uncertainty_tpu_torch.models.hodgkin_huxley")
 
 # Launches of each CUDA kernel in this process (compare runs by resetting).
+# Launches come from several threads (autograd's device threads run the
+# gradient kernel; the sharded estimator runs a thread per shard): the lock
+# keeps every increment.
 launches: Dict[str, int] = {"nll_fwd": 0, "nll_bwd": 0}
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 # --------------------------------------------------------------------------
@@ -697,7 +708,7 @@ class NllFwd:
             )
         if err != 0:
             raise RuntimeError(f"nll_fwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
-        launches[self.name] += 1
+        count_launch(self.name)
         return out
 
 
@@ -775,7 +786,7 @@ class NllGrad:
             )
         if err != 0:
             raise RuntimeError(f"nll_bwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
-        launches[self.name] += 1
+        count_launch(self.name)
         return dphys, dgamma
 
 

@@ -193,7 +193,9 @@ def test_stage_optimizer_routes_agree():
 
 def test_stage_optimizer_rejects_what_is_not_ported():
     kernel, _, q = _lv_kernel_and_nll()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh is ported (tests/test_torch_mesh_host.py); as in the reference,
+    # it takes nll and not nll_batched
+    with pytest.raises(ValueError, match="nll_batched and mesh are mutually exclusive"):
         make_stage_optimizer_host(None, q, nll_batched=kernel, mesh=object())
     with pytest.raises(ValueError, match="nll or nll_batched"):
         make_stage_optimizer_host(None, q)
