@@ -9,7 +9,8 @@ Phases, each printing one JSON line with its own wall seconds:
                   parallel, then a link; timed). Before it the observations
                   of phase 5 are synthesized (phase observations), and the
                   processes of the LV plain references (phases 3 and 4)
-                  start, to run beside the build.
+                  and of the erk ones (phases 18-21) start, to run beside
+                  the build.
   3. parity       the nll_fwd kernel against its plain PyTorch version (run in
                   float64 on the host's CPU, in PLAIN_REF_GROUPS processes, on
                   the same inputs) at the full 2000-step horizon, for
@@ -159,45 +160,101 @@ Phases, each printing one JSON line with its own wall seconds:
                   bench.py's hh_full shape (B = 512, 11 rows, float32),
                   median of HH_FULL_TIMING_REPS (2), each beside its bound
                   and its plain version at HH_N8_PLAIN_TIMING_STEPS steps.
- 18. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
+ 18. erk_parity   every explicit-step instantiation of the other tile models
+                  and tableaus (Heun-Euler, Bogacki-Shampine 3(2), RKF45,
+                  Dormand-Prince 6(5) on Lotka-Volterra (not RKF45), Lorenz,
+                  van der Pol, the pendulum, logistic and exponential
+                  growth, at L = 1 and L = n; 38 chains, 152
+                  instantiations), nll_fwd and nll_bwd (every parameter row
+                  and each lane's d/d gamma^1/2), float64 and float32,
+                  against the float64 plain version on the host's CPU, on
+                  rigs of ERK_PARITY_STEPS (50) steps with a correct every
+                  second step (observations synthesized from an RKF45 solve
+                  at the defaults plus N(0, 0.1)), every parameter varied
+                  over 0.5-1.5 times its default, batches of 1, 33 and 256
+                  lanes at gamma^1/2 = 0.1 and 0: float64 values rtol 1e-9,
+                  gradients 1e-8; float32 p99 of the lane-normalized error
+                  2e-4 and 5e-3. Its plain references (and the timing rigs'
+                  operation counts) run in ERK_REF_GROUPS processes started
+                  before the build (~50 s of host work on one core).
+ 19. pendulum_optimize  the port's `optimize` on params/pendulum with the
+                  covariance-free filter (the kernels' configuration):
+                  RKF45, 1,000 steps, length in [0.1, 10], 100 restarts x 4
+                  stages, float32, the experiment's lbfgs_maxiter (200), on
+                  the npz copy of results/noise_gt/pendulum.h5, the counts
+                  set to 0 just before: the route, both kernels launched,
+                  >= 95% of restarts finite, the best final NLL at most the
+                  NLL at length 3.0 (the default that generated the
+                  observations; gamma = 0, the same wrapper) plus 1e-3
+                  relative, the best length within 10% of 3.0; and the
+                  entry points' float64 wrapper on PENDULUM_LANES lanes at
+                  the full horizon (value and gradient, the first and last
+                  stage's gamma^1/2) against the float64 plain version on
+                  the host's CPU (1e-9, 1e-8).
+ 20. pendulum_evaluate  the port's `evaluate` on the same experiment (100
+                  lengths x 4 stages, float32) under each of the four
+                  tableaus, the counts set to 0 just before each: 4 launches
+                  of that tableau's instantiation, the last stage's argmin
+                  within 10% of 3.0, every point equal bit for bit to a
+                  direct launch of the entry points' wrapper.
+ 21. erk_full_horizon  Lorenz (L = 1 and 3, 5,000 steps) and van der Pol
+                  (L = 1 and 2, 7,000 steps from t0 = 10) on the committed
+                  results/noise_gt traces (npz copies) at full horizon in
+                  float64 under every tableau, 16 lanes at 0.9-1.1 times the
+                  defaults, half at gamma^1/2 = 0.1 and half at 0: every
+                  value finite; on the first ERK_FULL_PREFIX_STEPS (50)
+                  steps (Lorenz is chaotic) against the float64 plain
+                  version on the host's CPU at 1e-9.
+ 22. erk_timing   every new instantiation at B = 256 over 1,000 steps with a
+                  correct a step (params/pendulum's shape), median of 3
+                  CUDA-event timings, nll_bwd over every parameter row;
+                  beside each its bound (the operations one lane of the
+                  plain version counts on that rig, counted in the erk
+                  reference processes) and its plain version at
+                  ERK_PLAIN_TIMING_STEPS (2) steps. The kernels line lists
+                  every instantiation under rows 1 and 3 (`instantiations`:
+                  launches on the paths of phases 19-21, ms, bound,
+                  registers and spill stores from ptxas, the max_abs_err of
+                  erk_parity's float32 lanes).
+ 23. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
                   (Dopri65) and noise_gt/lotkavolterra (Kvaerno3, noise of
                   variance 0.1 from a torch.Generator on the card), cut to
                   ODE_GT_STEPS and ODE_NOISE_STEPS: x and t equal the port's
                   float64 CPU run at rtol 1e-9; the noise (the card's noisy x
                   minus the CPU's noise-free one) has a sample mean and
                   variance within 5 standard errors of 0 and 0.1.
- 19. filter_ekf   run_filter on ekf_trajectory/rkf45/{lotkavolterra, lorenz,
+ 24. filter_ekf   run_filter on ekf_trajectory/rkf45/{lotkavolterra, lorenz,
                   vanderpol, lcao} at full size (2000-8000 steps), float32
                   and float64: float64 card against the port's float64 CPU on
                   x (elementwise, rtol 1e-9) and P_sqrt (each saved step
                   relative to its largest element, 1e-9), Lorenz on its first
                   LORENZ_HELD_STEPS steps (chaotic), the rest reported;
                   float32 against float64 reported.
- 20. filter_pf    run_filter on pf_trajectory/rkf45/lotkavolterra (100
+ 25. filter_pf    run_filter on pf_trajectory/rkf45/lotkavolterra (100
                   particles, 2000 steps, float32), twice with its seed:
                   the same ensemble, every particle finite, particle 0 equal
                   to make_solve_fn on the card at rtol 1e-9; the spread
                   reported.
- 21. filter_ext   run_filter on the LV ekf_trajectory config with the filter
+ 26. filter_ext   run_filter on the LV ekf_trajectory config with the filter
                   node swapped (DenseEKF, UKF, SqrtUKF, GMMSqrtEKF; 2000
                   steps, float64): every output key against the float64 CPU
                   at 1e-9 (each saved step relative to its largest element);
                   reported beside it, the change that moving x0 by one ulp
                   makes on the CPU.
- 22. calibration  run_calibration on calibration/rkf45/lotkavolterra at full
+ 27. calibration  run_calibration on calibration/rkf45/lotkavolterra at full
                   size (500 levels, 2000 steps, float32 and float64) on the
                   committed ground truth (data/gt_lotkavolterra.npz): the
                   float64 card's levels and NLLs (all 500 and nll_ours)
                   against the float64 CPU at rtol 1e-9, the argmin level
                   equal; float32 and the NLLs' one-ulp conditioning
                   reported.
-                  The float64 CPU references of phases 18-23 run in a process
+                  The float64 CPU references of phases 23-28 run in a process
                   of their own (REF_THREADS threads) from the build phase on;
                   so do the plain references of phases 9 and 13 (the spike
                   rig's x0 and the plain values and gradients, in
                   PLAIN_REF_GROUPS processes of one thread each).
                   Each of these phases prints its wall and per-step seconds.
- 23. c2_route     the estimation objective's route without a kernel (make_nll +
+ 28. c2_route     the estimation objective's route without a kernel (make_nll +
                   autograd through the Kvaerno3 stage-solve rule at second
                   order) on params/hodgkinhuxley2_c2_r4 (two compartments,
                   n = 8, V of both observed, g_Na and g_K per compartment:
@@ -218,7 +275,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   plus backward at 100 lanes at the horizons
                   C2_MEMORY_HORIZONS with a checkpoint per observation
                   interval (remat) and with none (chunk_size=1).
- 24. c2_optimize  the port's `optimize` on params/hodgkinhuxley2_c2_r4 at full
+ 29. c2_optimize  the port's `optimize` on params/hodgkinhuxley2_c2_r4 at full
                   width (100 restarts from seed 224, 4 stages, float32, the
                   committed npz observations), horizon cut to C2_OPT_STEPS
                   steps and lbfgs_maxiter to C2_LBFGS_MAXITER: shapes, the
@@ -227,7 +284,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   points the stage started from (the same objective);
                   wall seconds, dispatches per stage, lanes at the iteration
                   limit and peak memory reported.
- 25. device_optimize  the port's `optimize --set optimizer_mode=device` (the
+ 30. device_optimize  the port's `optimize --set optimizer_mode=device` (the
                   device L-BFGS, projected Armijo, in segments) on
                   params/lotkavolterra2 at full size (100 restarts, 4 stages,
                   2000 steps, float32, lbfgs_maxiter 200) on the synthesized
@@ -239,14 +296,14 @@ Phases, each printing one JSON line with its own wall seconds:
                   around each launch). The best NLL and optimum are reported
                   beside the host optimize phase's, not held: the Armijo
                   search is another optimizer than the host's strong Wolfe.
- 26. device_parity  the device stage optimizer over the entry points'
+ 31. device_parity  the device stage optimizer over the entry points'
                   batched_nll on params/lotkavolterra2 cut to
                   DEVICE_PARITY_STEPS steps, float64, 8 restarts, the first
                   stage's gamma and 0: the card (kernels) against the same
                   run on the host's CPU (plain versions, the device reference
                   process): iterations and evaluations equal in every lane, x
                   within 1e-8 (normalized box), f rtol 1e-9.
- 27. baseline     the filter-free baseline (make_baseline_nll, autograd through
+ 32. baseline     the filter-free baseline (make_baseline_nll, autograd through
                   the eager solve; no kernel) on params_baseline/lotkavolterra2:
                   `optimize` at full width (100 restarts, 2000 RKF45 steps,
                   float32) with lbfgs_maxiter cut to BASELINE_LBFGS_MAXITER
@@ -258,14 +315,14 @@ Phases, each printing one JSON line with its own wall seconds:
                   lbfgs_box from 8 restarts on the rig cut to
                   BASELINE_PARITY_STEPS steps (as device_parity). No NLL
                   kernel may launch.
- 28. trmse        the port's compute_trmse on device_optimize's output (100
+ 33. trmse        the port's compute_trmse on device_optimize's output (100
                   rows, 2000 steps), float64 card against float64 CPU: the
                   non-finite rows coincide, values, mean and std at rtol
                   1e-9; both times.
-                  The CPU float64 runs of phases 26, 27 and 33 come from a
+                  The CPU float64 runs of phases 31, 32 and 38 come from a
                   process of their own (one thread) started with the others,
                   once the observations exist.
- 29. mesh_host    the host L-BFGS's `mesh=` (parallel/mesh.py): every stage
+ 34. mesh_host    the host L-BFGS's `mesh=` (parallel/mesh.py): every stage
                   of params/lotkavolterra2 at full size (100 restarts from
                   the CLI's seeded generator, 4 stages, 2000 steps, float32,
                   lbfgs_maxiter 200, the synthesized observations) through
@@ -277,17 +334,17 @@ Phases, each printing one JSON line with its own wall seconds:
                   to the unsharded host optimizer from the same restarts.
                   Wall seconds, dispatches and the kernels' summed device
                   seconds reported beside the unsharded run's.
- 30. mesh_device  make_sharded_tempered_estimator over the same wrapper on 4
+ 35. mesh_device  make_sharded_tempered_estimator over the same wrapper on 4
                   shards, gammas 1e-2 and 0, max_iter 25: every lane's
                   iterations and evaluations equal to the unsharded
                   make_tempered_estimator's, x within 1e-8 (normalized box).
- 31. mesh_landscape  make_sharded_nll_landscape on 4 shards over evaluate's
+ 36. mesh_landscape  make_sharded_nll_landscape on 4 shards over evaluate's
                   20 x 20 grid at its 4 gammas: bit for bit
                   make_nll_landscape's, 16 launches.
- 32. measure_scaling  `python -m ode_uncertainty_tpu_torch.measure_scaling
+ 37. measure_scaling  `python -m ode_uncertainty_tpu_torch.measure_scaling
                   --path host --devices 1,2,4 --per-device 16` on the card:
                   its lines, each finite and naming its cards.
- 33. diag_nan_lanes  the committed results/params/hodgkinhuxley11_full.h5
+ 38. diag_nan_lanes  the committed results/params/hodgkinhuxley11_full.h5
                   (its npz copy) re-evaluated at its non-finite lanes' stage
                   entry points in float32 and float64 through the n = 8
                   nll_fwd at 10^4 steps: the classification per lane, the
@@ -295,20 +352,22 @@ Phases, each printing one JSON line with its own wall seconds:
                   float64 card against the float64 plain version on the
                   CPU (the device reference process) at rtol 1e-9 on the
                   lanes that are finite in float64.
- 34. compare_optimizer  `compare_optimizer --restarts 8 --maxiter 25` on
+ 39. compare_optimizer  `compare_optimizer --restarts 8 --maxiter 25` on
                   params/lotkavolterra2 (float64 on the card, the
                   synthesized observations): the table; the host and device
                   rows' best NLL finite.
- 35. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
+ 40. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
-                  Kvaerno3 step for n = 4, 7 and 8; launches by path), the
+                  Kvaerno3 step for n = 4, 7 and 8; launches by path; the
+                  two ERK rows with their `instantiations`), the
                   nvidia-smi line, then the device line. The solution paths,
                   the c2 phases and the baseline launch none of them: no TPU
                   kernel lies on them.
 
 The Hodgkin-Huxley phases run in the order 10, 11, 15, 16, 9, 12, 13, 14,
 17: the two optimize phases first, so that the plain references that
-phases 9 and 13 read (host CPU work) are ready when those run.
+phases 9 and 13 read (host CPU work) are ready when those run; the erk
+phases 18-22 after them.
 The build phase reports each instantiation's registers, spills and ptxas
 time. Every phase line after the first names the card and its power limit
 (`card`). Files too long for the output (the ptxas report, the synthesized
@@ -319,6 +378,7 @@ the script exits non-zero without printing the last line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -432,6 +492,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# the device code's model functors and tableaus (csrc/ekf_chain.cuh) by the port's names
+PTXAS_MODELS = {"LotkaVolterra": "lotka_volterra", "Lorenz": "lorenz", "VanDerPol": "van_der_pol",
+                "Pendulum": "pendulum", "Logistic": "logistic", "Exponential": "exponential",
+                "HodgkinHuxley": "hodgkin_huxley"}
+PTXAS_TABLEAUS = {"HeunEuler": "heun_euler", "Bs32": "bs32", "Rkf45": "rkf45", "Dopri65": "dopri65"}
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and compile time of each kernel instantiation, from
     nvcc's -Xptxas=-v output."""
@@ -440,12 +507,15 @@ def ptxas_report(log: str) -> list:
         entry = re.search(r"Compiling entry function '.*?(nll_(?:fwd|bwd))(_team)?_kernelI([fd])(.*)'", line)
         if entry:
             kernel, team, real, rest = entry.group(1, 2, 3, 4)
+            # the template's class arguments, length-prefixed in the mangled name
+            names = [rest[m.end():m.end() + int(m.group(1))] for m in re.finditer(r"NS_(\d+)", rest)]
+            model = next(PTXAS_MODELS[x] for x in names if x in PTXAS_MODELS)
             if team:  # nll_*_team_kernel<real, HodgkinHuxley<n>>: L = 1
-                n, obs = re.search(r"HodgkinHuxleyILi(\d+)E", rest).group(1), 1
+                n, obs, tableau = re.search(r"HodgkinHuxleyILi(\d+)E", rest).group(1), 1, "kvaerno3"
             else:
                 n, obs = re.match(r"Li(\d+)ELi(\d+)E", rest).group(1, 2)
-            model = "hodgkin_huxley" if "HodgkinHuxley" in rest else "lotka_volterra"
-            out.append({"kernel": kernel, "model": model, "n": int(n), "L": int(obs),
+                tableau = next(PTXAS_TABLEAUS[x] for x in names if x in PTXAS_TABLEAUS)
+            out.append({"kernel": kernel, "model": model, "tableau": tableau, "n": int(n), "L": int(obs),
                         "design": "team per lane" if team else "thread per lane",
                         "dtype": "float32" if real == "f" else "float64"})
         elif out and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
@@ -549,16 +619,19 @@ def grad_ops_per_lane(cm) -> int:
     return GRAD_OPS[key]
 
 
-def bound_ms(cm, batch: int, grad: bool = False, phys=None) -> tuple:
+def bound_ms(cm, batch: int, grad: bool = False, phys=None, lane_ops: int = None) -> tuple:
     """Least time for one launch: bytes in and out over HBM bandwidth vs the
     operations over the non-tensor peak of the dtype. The forward reads the
     parameter rows and the observations and writes the NLL; the gradient
-    also reads the cotangent and writes the parameter rows' gradient."""
+    also reads the cotangent and writes the parameter rows' gradient.
+    ``lane_ops``: one lane's operations, counted elsewhere."""
     item = torch.finfo(cm.dtype).bits // 8
     values = cm.k_params * batch + cm.n_obs * cm.L + batch
     if grad:
         values += cm.k_params * batch
-    ops = (grad_ops_per_lane(cm) if grad else ops_per_lane(cm, phys)) * batch
+    if lane_ops is None:
+        lane_ops = grad_ops_per_lane(cm) if grad else ops_per_lane(cm, phys)
+    ops = lane_ops * batch
     t_bytes = values * item / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_FLOPS[cm.dtype] * 1e3
     return (t_ops, "operations", ops) if t_ops >= t_bytes else (t_bytes, "bytes", ops)
@@ -1105,6 +1178,9 @@ def plain_references(out_dir: Path, keys: list) -> None:
     hh_gs0 = float(torch.sqrt(gammas_of(hh_config(), torch.float64)[0]))
     x_spike = None
     for key in keys:
+        if key.startswith(("erk-", "erkfull-")) or key == "pendulum_lanes":
+            save_atomically(erk_plain_reference(key), out_dir / f"{key}.pt")
+            continue
         if key in LV_REF_KEYS:
             cfg = None
             if key.endswith("lv2"):
@@ -1128,13 +1204,16 @@ def plain_references(out_dir: Path, keys: list) -> None:
         save_atomically(plain(make, hh_gs0, **kw), out_dir / f"{key}.pt")
 
 
-def start_plain_references(lv: bool) -> dict:
-    """Starts the processes of the LV groups (``lv``) or of the HH groups of
-    PLAIN_REF_GROUPS: {group index: process}."""
+def start_plain_references(before_build: bool) -> dict:
+    """Starts the processes of the groups of PLAIN_REF_GROUPS that need no
+    kernel and start before the build (``before_build``: the LV and the erk
+    groups, whose host work then overlaps nvcc's rather than the reference
+    processes started after it) or of the HH groups: {group index:
+    process}."""
     PLAIN_REF_DIR.mkdir(exist_ok=True)
     procs = {}
     for i, keys in enumerate(PLAIN_REF_GROUPS):
-        if (set(keys) <= set(LV_REF_KEYS)) != lv:
+        if (set(keys) <= set(LV_REF_KEYS) or set(keys) <= set(erk_ref_keys())) != before_build:
             continue
         for key in keys:
             (PLAIN_REF_DIR / f"{key}.pt").unlink(missing_ok=True)
@@ -1168,6 +1247,412 @@ def hh_bench_kernel(dtype):
            for k in model.params}
     spec = make_param_spec(model.params, cfg["params_range"], opt, dtype=dtype, device=DEVICE)
     return hh_kernel(cfg, dtype, 0.0, 10000, data="hodgkinhuxley_full.npz", spec=spec)
+
+
+# ---- the explicit-step kernels on every tile model and tableau (rows 1 and 3) ----
+# model -> (factory, x0 [N, D]) of the erk_parity and timing rigs (the
+# experiments' x0 where the repo has one, configs/experiments.py SYSTEMS)
+ERK_MODELS = {
+    "lotka_volterra": (models.lotka_volterra, [[1.0, 1.0]]),
+    "lorenz": (models.lorenz, [[1.0, 1.0, 1.0]]),
+    "van_der_pol": (models.van_der_pol, [[2.0], [10.0]]),
+    "pendulum": (models.pendulum, [[0.785398], [0.0]]),
+    "logistic": (models.logistic, [[0.1]]),
+    "exponential": (models.exponential, [[1.0]]),
+}
+ERK_TABLEAUS = ("heun_euler", "bs32", "rkf45", "dopri65")
+ERK_CLASSES = {"heun_euler": "HeunEuler", "bs32": "BS32", "rkf45": "RKF45", "dopri65": "Dopri65"}
+ERK_PARITY_STEPS, ERK_PARITY_EVERY = 50, 2  # erk_parity's cut horizon and observation spacing
+ERK_BATCHES = (1, 33, 256)  # ragged: the last warp part empty
+ERK_GAMMAS = (0.1, 0.0)
+ERK_TIMING_STEPS, ERK_TIMING_BATCH, ERK_TIMING_REPS = 1000, 256, 3  # params/pendulum's horizon, a correct a step
+ERK_PLAIN_TIMING_STEPS = 2
+PENDULUM_EXPERIMENT = "params/pendulum"
+PENDULUM_LENGTH_TRUE = 3.0  # the model default that generated results/noise_gt/pendulum.h5
+PENDULUM_LANES = 4  # float64 lanes of pendulum_optimize's rig held to the plain version
+# the covariance-free filter: every kernel-route experiment's, the kernels' configuration
+NO_COV_FILTER = {"class_path": "SQRT_EKF", "init_args": {"disable_cov_update": True}}
+# erk_full_horizon: model -> (npz copy of its results/noise_gt trace, t0, tN), h = 0.01
+ERK_FULL = {"lorenz": ("lorenz.npz", 0.0, 50.0), "van_der_pol": ("vanderpol.npz", 10.0, 80.0)}
+ERK_FULL_LANES = 16
+ERK_FULL_PREFIX_STEPS = 50  # Lorenz is chaotic: the plain version holds the kernel on this prefix
+ERK_REF_GROUPS = 3  # processes of the erk plain references
+
+
+def erk_chains() -> list:
+    """(model, tableau, L) of the new explicit-step instantiations: every
+    tableau on every tile model at L = 1 and L = n, but Lotka-Volterra's
+    RKF45 (row 1's own, in nll_fwd.cu / nll_bwd.cu)."""
+    return [(m, tab, L) for m, (_, x0) in ERK_MODELS.items() for tab in ERK_TABLEAUS
+            if (m, tab) != ("lotka_volterra", "rkf45") for L in sorted({1, int(np.size(x0))})]
+
+
+@functools.cache
+def synthesized_trace(model: str, steps: int) -> tuple:
+    """(t, x + noise) of a float64 RKF45 solve of ``model`` at its defaults
+    from ERK_MODELS' x0 at t = 0 over ``steps`` steps of 0.01, plus N(0, 0.1)
+    from numpy's default_rng(SEED): the same in every process."""
+    factory, x0 = ERK_MODELS[model]
+    x0 = torch.tensor(x0, dtype=torch.float64)
+    sol = solvers.solve(solvers.rkf45(0.01), factory(), 0.0, x0, steps)
+    xs = sol["x"].numpy().reshape(steps + 1, x0.numel())
+    return sol["t"].numpy(), xs + np.sqrt(0.1) * np.random.default_rng(SEED).standard_normal(xs.shape)
+
+
+def erk_kernel(model: str, tableau: str, L: int, dtype, steps: int, every: int, device=None, trace=None,
+               t0: float = 0.0):
+    """The kernels' wrapper of ``model`` under ``tableau`` at h = 0.01 from
+    ERK_MODELS' x0, every parameter varied over 0.5 to 1.5 times its
+    default, the first L states observed every ``every`` steps with noise
+    variance 0.1: the rows of ``trace`` (a committed npz, from ``t0``) or
+    synthesized_trace's."""
+    device = DEVICE if device is None else device
+    factory, x0 = ERK_MODELS[model]
+    m, h = factory(), 0.01
+    x0 = torch.tensor(x0, dtype=torch.float64)
+    n = x0.numel()
+    if trace is None:
+        ts, xs = synthesized_trace(model, steps)
+    else:
+        ts, xs = trace["t"], trace["x"].reshape(len(trace["t"]), n)
+    rows = slice(every, steps + 1, every) if trace is None else slice(0, None)
+    obs = make_obs_model(np.eye(n)[:L], ts[rows], xs[rows], 0.1, t0, h, steps, dtype=dtype, device=device)
+    spec = make_param_spec(m.params, {k: (0.5 * float(v), 1.5 * float(v)) for k, v in m.params.items()},
+                           {k: True for k in m.params}, dtype=dtype, device=device)
+    ekf = SqrtEKF(disable_cov_update=True)
+    state0 = ekf.init_state(t0, x0.to(device=device, dtype=dtype), const_diag(n, 1e-6, dtype, device), obs.obs_dim)
+    return nll_kernel.make_nll_cuda(m, getattr(solvers, tableau)(h), ekf, spec, obs, state0, steps,
+                                    torch.eye(n, dtype=dtype, device=device))
+
+
+def erk_full_kernel(model: str, tableau: str, L: int, dtype, steps: int = None, device=None):
+    """erk_kernel on the committed trace of ``model`` (ERK_FULL) from its t0,
+    at the full horizon or its first ``steps`` steps."""
+    name, t0, t_end = ERK_FULL[model]
+    trace = dict(np.load(HH_DATA / name))
+    full = int(round((t_end - t0) / 0.01))
+    return erk_kernel(model, tableau, L, dtype, full if steps is None else steps, 1, device, trace, t0)
+
+
+def erk_parity_inputs(cols: int) -> tuple:
+    """erk_parity's lanes: [(points, gamma^1/2)] for each batch of
+    ERK_BATCHES at each of ERK_GAMMAS, and one cotangent a lane (numpy)."""
+    rng = np.random.default_rng(SEED + 4)
+    groups = [(rng.uniform(size=(b, cols)), gs) for b in ERK_BATCHES for gs in ERK_GAMMAS]
+    return groups, rng.uniform(0.5, 1.5, size=sum(len(p) for p, _ in groups))
+
+
+def erk_full_inputs(cols: int) -> tuple:
+    """erk_full_horizon's lanes: 0.9 to 1.1 times the defaults, half at
+    gamma^1/2 = 0.1 and half at 0."""
+    p = np.random.default_rng(SEED + 5).uniform(0.4, 0.6, size=(ERK_FULL_LANES, cols))
+    return p, np.repeat([0.1, 0.0], ERK_FULL_LANES // 2)
+
+
+def pendulum_config(out_path: Path, tableau: str = "rkf45", float64: bool = False, device: str = None):
+    """params/pendulum with the covariance-free filter under ``tableau``, on
+    the npz copy of its committed observations."""
+    raw = load_experiment(PENDULUM_EXPERIMENT)
+    raw["solver_builder"]["class_path"] = f"ode_uncertainty_tpu.solvers.{ERK_CLASSES[tableau]}"
+    return build_config(raw, {"filter_builder": NO_COV_FILTER, "y_path": str(HH_DATA / "pendulum.npz"),
+                              "output": str(out_path), "device": DEVICE if device is None else device,
+                              "float64": float64})
+
+
+def pendulum_lanes(device: str = None) -> tuple:
+    """pendulum_optimize's float64 check: the entry points' wrapper on the
+    experiment's rig, PENDULUM_LANES points, and their gamma^1/2: the first
+    stage's for the first half, the last stage's for the rest."""
+    cfg = pendulum_config(OUT / "unused.npz", float64=True, device=device)
+    kern = rpe.batched_nll(build_rig(cfg, torch.float64, torch.device(cfg["device"])), cfg, grad=True)[0]
+    p = np.random.default_rng(SEED + 6).uniform(size=(PENDULUM_LANES, 1))
+    gammas = gammas_of(cfg, torch.float64)
+    half = PENDULUM_LANES // 2
+    return kern, p, np.repeat([float(torch.sqrt(gammas[0])), float(torch.sqrt(gammas[-1]))], [half, half])
+
+
+def erk_key(prefix: str, model: str, tableau: str, L: int) -> str:
+    return f"{prefix}-{model}-{tableau}-{L}"
+
+
+def erk_ref_keys() -> list:
+    """The plain references of the erk phases: erk_parity's (``erk-*``,
+    with the timing rigs' operation counts), erk_full_horizon's prefixes
+    (``erkfull-*``) and pendulum_optimize's lanes."""
+    keys = [erk_key("erk", *c) for c in erk_chains()]
+    keys += [erk_key("erkfull", m, tab, L) for m, n in (("lorenz", 3), ("van_der_pol", 2))
+             for tab in ERK_TABLEAUS for L in (1, n)]
+    return keys + ["pendulum_lanes"]
+
+
+def erk_plain_reference(key: str) -> dict:
+    """One erk plain reference on the host's CPU, float64."""
+    if key == "pendulum_lanes":
+        kern, p, gs = pendulum_lanes("cpu")
+        phys, gs = kern.physical(torch.as_tensor(p)), torch.as_tensor(gs)
+        (vals, (dphys, dgamma)), ms = cpu_time(lambda: (
+            nll_kernel.nll_plain(kern.cm, phys, kern.ys, gs),
+            nll_kernel.nll_grad_plain(kern.cm, phys, kern.ys, gs, torch.ones(len(p), dtype=torch.float64))))
+        return {"plain64": vals, "grad64": torch.cat([dphys, dgamma[None]]), "ms": ms}
+    prefix, model, tab, L = key.split("-")
+    L = int(L)
+    if prefix == "erkfull":
+        kern = erk_full_kernel(model, tab, L, torch.float64, ERK_FULL_PREFIX_STEPS, "cpu")
+        p, gs = erk_full_inputs(kern.spec.num_opt)
+        vals, ms = cpu_time(lambda: nll_kernel.nll_plain(kern.cm, kern.physical(torch.as_tensor(p)), kern.ys,
+                                                         torch.as_tensor(gs)))
+        return {"plain64": vals, "ms": ms}
+    kern = erk_kernel(model, tab, L, torch.float64, ERK_PARITY_STEPS, ERK_PARITY_EVERY, "cpu")
+    groups, cot = erk_parity_inputs(kern.spec.num_opt)
+    phys = kern.physical(torch.as_tensor(np.concatenate([p for p, _ in groups])))
+    gs = torch.as_tensor(np.concatenate([np.full(len(p), g) for p, g in groups]))
+    vals, ms = cpu_time(lambda: nll_kernel.nll_plain(kern.cm, phys, kern.ys, gs))
+    (dphys, dgamma), grad_ms = cpu_time(lambda: nll_kernel.nll_grad_plain(kern.cm, phys, kern.ys, gs,
+                                                                          torch.as_tensor(cot)))
+    # one lane's operations on the timing rig (the structure, not the type, sets them)
+    timing = erk_kernel(model, tab, L, torch.float64, ERK_TIMING_STEPS, 1, "cpu")
+    return {"plain64": vals, "grad64": torch.cat([dphys, dgamma[None]]), "ms": ms, "grad_ms": grad_ms,
+            "fwd_ops": ops_per_lane(timing.cm), "grad_ops": grad_ops_per_lane(timing.cm)}
+
+
+def erk_ref_groups() -> tuple:
+    """erk_ref_keys dealt over ERK_REF_GROUPS processes, the dearest first."""
+    keys = erk_ref_keys()
+    cost = lambda k: (k.startswith("erk-") * 10 + ("dopri65" in k) * 4 + ("lorenz" in k) * 2
+                      + (k == "pendulum_lanes") * 30)
+    groups = [[] for _ in range(ERK_REF_GROUPS)]
+    loads = [0] * ERK_REF_GROUPS
+    for k in sorted(keys, key=cost, reverse=True):
+        i = loads.index(min(loads))
+        groups[i].append(k)
+        loads[i] += cost(k) + 1
+    return tuple(tuple(g) for g in groups)
+
+
+# the keys of an entry of the kernels line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def erk_entry(kernel: str, model: str, tableau: str, L: int, dtype) -> dict:
+    """The kernels line's entry of one instantiation (without its numbers)."""
+    unit = {"lotka_volterra": "lv", "van_der_pol": "vdp"}.get(model, model)
+    dt = str(dtype).removeprefix("torch.")
+    return {"name": f"{kernel} {model}/{tableau} L={L} {dt}", "route": "cuda",
+            "source": f"ode_uncertainty_tpu_torch/csrc/{kernel}_erk_{unit}_{'f32' if dt == 'float32' else 'f64'}.cu",
+            "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:" + ("722" if kernel == "nll_fwd" else "851"),
+            "model": model, "tableau": tableau, "L": L, "dtype": dt, "library_ms": None}
+
+
+def erk_phases(plain_procs: dict, ptxas: list) -> dict:
+    """erk_parity, pendulum_optimize, pendulum_evaluate, erk_full_horizon and
+    erk_timing; returns the entries of every new instantiation for the
+    kernels line and the launches of rows 1 and 3 by path."""
+    entries = {}  # (kernel, model, tableau, L, dtype name) -> kernels-line entry
+    for model, tab, L in erk_chains():
+        for kernel in ("nll_fwd", "nll_bwd"):
+            for dtype in (torch.float32, torch.float64):
+                e = erk_entry(kernel, model, tab, L, dtype)
+                spill = next((p for p in ptxas if (p["kernel"], p["model"], p["tableau"], p["L"], p["dtype"])
+                              == (kernel, model, tab, L, e["dtype"])), {})
+                e.update(registers=spill.get("registers"), spill_stores=spill.get("spill_stores"), launches=0)
+                entries[(kernel, model, tab, L, e["dtype"])] = e
+
+    with Phase("erk_parity") as ph:
+        worst = {}
+        for model, tab, L in erk_chains():
+            ref = plain_ref(plain_procs, erk_key("erk", model, tab, L))
+            for dtype in (torch.float64, torch.float32):
+                kern = erk_kernel(model, tab, L, dtype, ERK_PARITY_STEPS, ERK_PARITY_EVERY)
+                groups, cot = erk_parity_inputs(kern.spec.num_opt)
+                cot = torch.as_tensor(cot, dtype=dtype, device=DEVICE)
+                vals, grads, start = [], [], 0
+                for p, gs in groups:
+                    phys = kern.physical(torch.as_tensor(p, dtype=dtype, device=DEVICE))
+                    vals.append(kern.launch(phys, gs))
+                    dphys, dgamma = kern.grad.launch(phys, gs, cot[start:start + len(p)], True)
+                    grads.append(torch.cat([dphys, dgamma[None]]))
+                    start += len(p)
+                torch.cuda.synchronize()
+                exact = dtype == torch.float64
+                label = f"{model} {tab} L={L} {str(dtype)[6:]}"
+                val = compare(torch.cat(vals), ref["plain64"], exact)
+                grad = compare_grads(torch.cat(grads, dim=1), ref["grad64"], exact)
+                for kernel, stat in (("nll_fwd", val), ("nll_bwd", grad)):
+                    entries[(kernel, model, tab, L, str(dtype)[6:])]["max_abs_err"] = stat["max_abs_err"]
+                    key = (kernel, str(dtype)[6:])
+                    err = stat["max_rel_err" if exact else "p99_lane_err"]
+                    if err >= worst.get(key, (-1.0,))[0]:
+                        worst[key] = (err, label)
+        ph.info.update(chains=len(erk_chains()), instantiations=len(entries), steps=ERK_PARITY_STEPS,
+                       every=ERK_PARITY_EVERY, batches=list(ERK_BATCHES), gammas_sqrt=list(ERK_GAMMAS),
+                       worst={f"{k} {d}": {"err": e, "chain": c} for (k, d), (e, c) in worst.items()},
+                       limits={"f64": [RTOL_F64, GRAD_RTOL_F64], "f32_p99": [P99_F32, GRAD_P99_F32]},
+                       plain_references="host CPU, processes of their own (ERK_REF_GROUPS)")
+
+    paths = {}
+    opt_path = OUT / "pendulum_optimize.npz"
+    for stale in OUT.glob("pendulum_optimize.npz*"):
+        stale.unlink()
+    with Phase("pendulum_optimize") as ph:
+        cfg = pendulum_config(opt_path)
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        with LaunchTimer() as timer:
+            res = optimize(cfg)
+        wall = time.perf_counter() - t0
+        counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+        kernel_s = timer.seconds()
+        final = np.asarray(res["nll_optims"][:, -1], np.float64)
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 1):
+            raise AssertionError(f"pendulum optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if min(counts.values()) <= 0 or res["route"] != "nll_fwd + nll_bwd kernels":
+            raise AssertionError(f"pendulum optimize did not run both kernels: {counts}, {res['route']}")
+        finite = np.isfinite(final)
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 pendulum restarts end finite")
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        kf = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg, grad=True)[0]
+        truth = float(kf.launch(kf.physical(kf.spec.defaults_norm_opt()[None]), 0.0)[0])
+        if not final[best] <= truth + 1e-3 * abs(truth):
+            raise AssertionError(f"best final pendulum NLL {final[best]} above the NLL at length 3.0, {truth}")
+        length = float(res["params_optims"][best, -1, 0])
+        if abs(length - PENDULUM_LENGTH_TRUE) > 0.10 * PENDULUM_LENGTH_TRUE:
+            raise AssertionError(f"best length {length} not within 10% of {PENDULUM_LENGTH_TRUE}")
+        # a few lanes in float64 against the plain version on the host's CPU (full horizon)
+        k64, p, gs = pendulum_lanes()
+        ref = plain_ref(plain_procs, "pendulum_lanes")
+        vals, grads = [], []
+        for g in dict.fromkeys(gs.tolist()):  # the halves in order
+            phys = k64.physical(torch.as_tensor(p[gs == g], device=DEVICE))
+            vals.append(k64.launch(phys, g))
+            dphys, dgamma = k64.grad.launch(phys, g, torch.ones(phys.shape[1], dtype=torch.float64, device=DEVICE),
+                                            True)
+            grads.append(torch.cat([dphys, dgamma[None]]))
+        torch.cuda.synchronize()
+        lanes = {"gamma_sqrt": gs.tolist(), "plain_cpu_ms": ref["ms"],
+                 "value": compare(torch.cat(vals), ref["plain64"], True),
+                 "gradient": compare_grads(torch.cat(grads, dim=1), ref["grad64"], True)}
+        ph.info.update(launches=counts, route=res["route"], optimize_wall_s=wall, restarts=100, stages=4,
+                       steps=kf.cm.n_obs, lbfgs_maxiter=cfg["lbfgs_maxiter"], finite_final=int(finite.sum()),
+                       best_final_nll=float(final[best]), nll_at_length_3=truth, best_length=length,
+                       units=res["units"], kernel_seconds=kernel_s, kernel_share=sum(kernel_s.values()) / wall,
+                       device_idle_share_at_most=1.0 - sum(kernel_s.values()) / wall,
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       f64_lanes_vs_plain=lanes, output=str(opt_path.relative_to(ROOT)))
+    paths["pendulum_optimize"] = (counts, by_chain)
+    pend_widest = max(u["widest"] for u in res["units"])
+
+    with Phase("pendulum_evaluate") as ph:
+        out, total, total_by_chain = {}, {"nll_fwd": 0, "nll_bwd": 0}, {}
+        for tab in ERK_TABLEAUS:
+            path = OUT / f"pendulum_evaluate_{tab}.npz"
+            path.unlink(missing_ok=True)
+            cfg = pendulum_config(path, tab)
+            nll_kernel.reset_launches()
+            res = evaluate(cfg)
+            counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+            vals = res["nll_evals"]
+            key = ("nll_fwd", "pendulum", tab, 2, 1, "float32")
+            if vals.shape != (4, 100) or not np.isfinite(vals).all():
+                raise AssertionError(f"pendulum evaluate ({tab}) gave shape {vals.shape}, finite {np.isfinite(vals).all()}")
+            if by_chain != {key: 4} or res["route"] != "nll_fwd kernel":
+                raise AssertionError(f"pendulum evaluate ({tab}) did not launch its instantiation 4 times: {by_chain}")
+            length = res["param_evals"][:, 0]
+            best = float(length[int(np.argmin(vals[-1]))])
+            if abs(best - PENDULUM_LENGTH_TRUE) > 0.10 * PENDULUM_LENGTH_TRUE:
+                raise AssertionError(f"pendulum evaluate ({tab}): last stage's argmin {best} not within 10% of 3.0")
+            # the points equal a direct launch of the entry points' wrapper
+            kd = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg)[0]
+            grid = torch.as_tensor(np.linspace(0.0, 1.0, vals.shape[1])[:, None], dtype=torch.float32, device=DEVICE)
+            direct = torch.stack([kd.launch(kd.physical(grid), float(torch.sqrt(gam)))
+                                  for gam in gammas_of(cfg, torch.float32)]).cpu().numpy()
+            if not np.array_equal(vals, direct):
+                raise AssertionError(f"pendulum evaluate ({tab}) differs from a direct launch")
+            for k in total:
+                total[k] += counts[k]
+            for k, v in by_chain.items():
+                total_by_chain[k] = total_by_chain.get(k, 0) + v
+            out[tab] = {"launches": counts, "wall_s": res["wall_s"], "argmin_length_last_stage": best,
+                        "nll_min_per_stage": vals.min(axis=1).tolist(), "points_equal_direct_launch": True,
+                        "output": str(path.relative_to(ROOT))}
+        ph.info.update(shape=[4, 100], tableaus=out, generating_length=PENDULUM_LENGTH_TRUE)
+    paths["pendulum_evaluate"] = (total, total_by_chain)
+
+    with Phase("erk_full_horizon") as ph:
+        rigs = [(model, tab, L) for model, n in (("lorenz", 3), ("van_der_pol", 2)) for tab in ERK_TABLEAUS
+                for L in (1, n)]
+        half = ERK_FULL_LANES // 2
+        nll_kernel.reset_launches()
+        full = {}
+        for model, tab, L in rigs:
+            kern = erk_full_kernel(model, tab, L, torch.float64)
+            pt = torch.as_tensor(erk_full_inputs(kern.spec.num_opt)[0], device=DEVICE)
+            full[(model, tab, L)] = (kern.cm, torch.cat([kern.launch(kern.physical(pt[:half]), 0.1),
+                                                        kern.launch(kern.physical(pt[half:]), 0.0)]))
+        torch.cuda.synchronize()
+        paths["erk_full_horizon"] = (dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain))
+        out = {}
+        for (model, tab, L), (cm, vals) in full.items():
+            if not torch.isfinite(vals).all():
+                raise AssertionError(f"erk_full_horizon {model} {tab} L={L}: non-finite NLL {vals.tolist()}")
+            # the cut prefix against the plain version on the host's CPU
+            short = erk_full_kernel(model, tab, L, torch.float64, ERK_FULL_PREFIX_STEPS)
+            pt = torch.as_tensor(erk_full_inputs(short.spec.num_opt)[0], device=DEVICE)
+            prefix = torch.cat([short.launch(short.physical(pt[:half]), 0.1),
+                                short.launch(short.physical(pt[half:]), 0.0)])
+            stat = compare(prefix, plain_ref(plain_procs, erk_key("erkfull", model, tab, L))["plain64"], True)
+            out[f"{model} {tab} L={L}"] = {"steps": cm.n_obs, "t0": cm.t0, "nll_min": float(vals.min()),
+                                           "nll_max": float(vals.max()), "prefix_steps": ERK_FULL_PREFIX_STEPS,
+                                           "prefix_vs_plain_f64_max_rel_err": stat["max_rel_err"]}
+        ph.info.update(rigs=out, lanes=ERK_FULL_LANES, dtype="float64",
+                       observations="data/lorenz.npz, data/vanderpol.npz (results/noise_gt)")
+
+    with Phase("erk_timing") as ph:
+        for model, tab, L in erk_chains():
+            ref = plain_ref(plain_procs, erk_key("erk", model, tab, L))
+            for dtype in (torch.float32, torch.float64):
+                dt = str(dtype)[6:]
+                kern = erk_kernel(model, tab, L, dtype, ERK_TIMING_STEPS, 1)
+                p = torch.as_tensor(np.random.default_rng(SEED).uniform(size=(ERK_TIMING_BATCH, kern.spec.num_opt)),
+                                    dtype=dtype, device=DEVICE)
+                phys, g = kern.physical(p), torch.ones(ERK_TIMING_BATCH, dtype=dtype, device=DEVICE)
+                fwd = lambda: kern.launch(phys, 0.1)
+                bwd = lambda: kern.grad.launch(phys, 0.1, g, False)
+                fwd(), bwd()
+                torch.cuda.synchronize()
+                for kernel, launch, plain, ops_key in (
+                        ("nll_fwd", fwd, lambda c: nll_kernel.nll_plain(c, phys, kern.ys, 0.1), "fwd_ops"),
+                        ("nll_bwd", bwd, lambda c: nll_kernel.nll_grad_plain(c, phys, kern.ys, 0.1, g), "grad_ops")):
+                    ms = event_times(launch, ERK_TIMING_REPS)
+                    _, plain_ms = sync_time(lambda: plain(cut(kern.cm, ERK_PLAIN_TIMING_STEPS)))
+                    b_ms, b_by, _ = bound_ms(kern.cm, ERK_TIMING_BATCH, grad=kernel == "nll_bwd",
+                                             lane_ops=ref[ops_key])
+                    entries[(kernel, model, tab, L, dt)].update(
+                        ms=float(np.median(ms)), plain_ms=plain_ms, plain_steps=ERK_PLAIN_TIMING_STEPS,
+                        bound_ms=b_ms, bound_by=b_by)
+        ranges = {}
+        for e in entries.values():
+            lo, hi = ranges.get(f"{e['name'][:7]} {e['dtype']}", (np.inf, -np.inf))
+            ranges[f"{e['name'][:7]} {e['dtype']}"] = (min(lo, e["ms"]), max(hi, e["ms"]))
+        pend = entries[("nll_fwd", "pendulum", "rkf45", 1, "float32")], entries[("nll_bwd", "pendulum", "rkf45", 1, "float32")]
+        ph.info.update(shape=f"B={ERK_TIMING_BATCH}, {ERK_TIMING_STEPS} steps, a correct a step, every row "
+                             "(nll_bwd, without d/d gamma^1/2), gamma^1/2 = 0.1",
+                       reps=ERK_TIMING_REPS, library_call="none", ms_range=ranges,
+                       pendulum_rkf45_f32={e["name"][:7]: {k: e[k] for k in ("ms", "bound_ms", "plain_ms")} for e in pend},
+                       per_instantiation=str((OUT / "erk_instantiations.json").relative_to(ROOT)))
+    for _, by_chain in paths.values():
+        for key, count in by_chain.items():
+            kernel, model, tab, _, L, dt = key
+            if (kernel, model, tab, L, dt) in entries:
+                entries[(kernel, model, tab, L, dt)]["launches"] += count
+    (OUT / "erk_instantiations.json").write_text(json.dumps(list(entries.values()), indent=1))
+    return {"entries": list(entries.values()),
+            "paths": {name: counts for name, (counts, _) in paths.items()}, "pendulum_widest": pend_widest}
+
+
+PLAIN_REF_GROUPS = PLAIN_REF_GROUPS + erk_ref_groups()
 
 
 # ---- probabilistic ODE solutions: run_ode_solver, run_filter, run_calibration ----
@@ -2167,18 +2652,20 @@ def main() -> int:
     # the LV plain references need no kernel: their processes run beside
     # the build; the CPU float64 references of the HH phases, of the
     # solution phases and of the device phases start after it
-    plain_procs = start_plain_references(lv=True)
+    plain_procs = start_plain_references(before_build=True)
     refs = dev_refs = None
     try:
         with Phase("build") as ph:
             res = build_library()
             (OUT / "nvcc_ptxas.txt").write_text(res.log)
+            ptxas = ptxas_report(res.log)
             ph.info.update(nvcc_seconds=res.seconds, built=res.built, library=str(res.path.relative_to(ROOT)),
-                           ptxas=ptxas_report(res.log))
+                           units=len(list((ROOT / "ode_uncertainty_tpu_torch" / "csrc").glob("*.cu"))),
+                           ptxas=ptxas)
         refs = start_solution_references()
-        plain_procs.update(start_plain_references(lv=False))
+        plain_procs.update(start_plain_references(before_build=False))
         dev_refs = start_device_references()
-        return run_phases(refs, plain_procs, dev_refs, t_start)
+        return run_phases(refs, plain_procs, dev_refs, t_start, ptxas)
     finally:
         for proc in (refs, *plain_procs.values(), dev_refs):
             if proc is None:
@@ -2188,7 +2675,8 @@ def main() -> int:
             proc.wait()
 
 
-def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.Popen, t_start: float) -> int:
+def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.Popen, t_start: float,
+               ptxas: list) -> int:
 
     obs_path, out_path = LV2_OBS, OUT / "lv2_evaluate.npz"
     out_path.unlink(missing_ok=True)
@@ -2297,7 +2785,7 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
         ms_b1 = event_times(lambda: kern.launch(phys1, g), 7)
         _, plain_ms = sync_time(lambda: nll_kernel.nll_plain(cut(kern.cm, PLAIN_TIMING_STEPS), phys, kern.ys, g))
         b_ms, b_by, ops = bound_ms(kern.cm, 256)
-        fwd_line = {"name": "nll_fwd (RKF45 step, a thread per lane)", "route": "cuda",
+        fwd_line = {"name": "nll_fwd (explicit step, a thread per lane)", "route": "cuda",
                     "source": "ode_uncertainty_tpu_torch/csrc/nll_fwd.cu",
                     "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:722",
                     "launches": eval_launches + opt_counts["nll_fwd"],
@@ -2328,7 +2816,7 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
         _, plain_ms = sync_time(lambda: nll_kernel.nll_grad_plain(cut(kern.cm, PLAIN_TIMING_STEPS), phys, kern.ys,
                                                                    opt_gamma_sqrt, g))
         b_ms, b_by, ops = bound_ms(kern.cm, widest, grad=True)
-        bwd_line = {"name": "nll_bwd (RKF45 step, a thread per lane and direction)", "route": "cuda",
+        bwd_line = {"name": "nll_bwd (explicit step, a thread per lane and direction)", "route": "cuda",
                     "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cu",
                     "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:851",
                     "launches": opt_counts["nll_bwd"],
@@ -2760,6 +3248,9 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
         hh_bwd_line["n8"] = {k: {f: v[f] for f in ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "plain_steps")}
                              for k, v in n8.items()}
 
+    # ---- the explicit-step kernels on every tile model and tableau, params/pendulum ----
+    erk = erk_phases(plain_procs, ptxas)
+
     # ---- probabilistic ODE solutions (no NLL kernel on these paths) ----
     solution_phases(refs)
 
@@ -2777,10 +3268,14 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
     lv_mesh = ("mesh_host", "mesh_device", "mesh_landscape", "measure_scaling", "compare_optimizer")
     for line, name in ((fwd_line, "nll_fwd"), (bwd_line, "nll_bwd")):
         by_path = {"optimize (host L-BFGS)": opt_counts[name], "device_optimize (device L-BFGS)": dev_counts[name],
-                   **{phase: mesh_counts[phase][name] for phase in lv_mesh}}
+                   **{phase: mesh_counts[phase][name] for phase in lv_mesh},
+                   **{phase: counts[name] for phase, counts in erk["paths"].items() if counts[name]}}
         if name == "nll_fwd":
             by_path = {"main_path (evaluate)": eval_launches, **by_path}
-        line.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        # every other model and tableau: one entry an instantiation (erk_timing's B = 256 times)
+        line.update(launches=sum(by_path.values()), launches_by_path=by_path,
+                    instantiations=[{k: e[k] for k in KERNEL_KEYS} for e in erk["entries"]
+                                    if e["name"].startswith(name)])
     hh_by_path = {"hh_main_path (n = 4)": hh_counts["nll_fwd"], "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],
                   "hh_full_optimize (n = 8)": full_opt_counts["nll_fwd"],
                   "diag_nan_lanes (n = 8)": mesh_counts["diag_nan_lanes"]["nll_fwd"]}

@@ -4,9 +4,10 @@
 // and JAX; quotients and square roots, tangents included, go through the
 // branch-free div_t and sqrt_t. Instantiating the chain on Dual<S> gives
 // the NLL and its exact derivative along the seeded direction
-// (nll_bwd.cuh). For the Hodgkin-Huxley rate laws it also has exp_t and
-// expm1_t and the operations of a jet of duals (Jet<Dual<S>, 1>, a
-// Jacobian column with its derivative) with constants of type S;
+// (nll_bwd.cuh). For the pendulum it has sin_t and cos_t; for the
+// Hodgkin-Huxley rate laws exp_t and expm1_t and the operations of a jet
+// of duals (Jet<Dual<S>, 1>, a Jacobian column with its derivative) with
+// constants of type S;
 // team_chain.cuh gives the Kvaerno3 stage solution's tangent.
 
 #pragma once
@@ -94,6 +95,21 @@ template <typename S>
 __device__ __forceinline__ Dual<S> expm1_t(Dual<S> a) {
   const S e = expm1_t(a.v);
   return {e, (e + S(1)) * a.d};
+}
+// sin and cos with their tangents, from one sincos of the value
+__device__ __forceinline__ void sincos_t(float x, float* s, float* c) { ::sincosf(x, s, c); }
+__device__ __forceinline__ void sincos_t(double x, double* s, double* c) { ::sincos(x, s, c); }
+template <typename S>
+__device__ __forceinline__ Dual<S> sin_t(Dual<S> a) {
+  S s, c;
+  sincos_t(a.v, &s, &c);
+  return {s, c * a.d};
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> cos_t(Dual<S> a) {
+  S s, c;
+  sincos_t(a.v, &s, &c);
+  return {c, -(s * a.d)};
 }
 template <typename S>
 __device__ __forceinline__ S value_of(Dual<S> a) {
@@ -190,6 +206,28 @@ __device__ __forceinline__ LotkaVolterra::Params<Dual<S>> seed(const LotkaVolter
           {p.beta, S(poff[1] == dir)},
           {p.gamma, S(poff[2] == dir)},
           {p.delta, S(poff[3] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ Lorenz::Params<Dual<S>> seed(const Lorenz::Params<S>& p, const int* poff, int dir) {
+  return {{p.sigma, S(poff[0] == dir)}, {p.rho, S(poff[1] == dir)}, {p.beta, S(poff[2] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ VanDerPol::Params<Dual<S>> seed(const VanDerPol::Params<S>& p, const int* poff,
+                                                           int dir) {
+  return {{p.damping, S(poff[0] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ Pendulum::Params<Dual<S>> seed(const Pendulum::Params<S>& p, const int* poff, int dir) {
+  return {{p.length, S(poff[0] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ Logistic::Params<Dual<S>> seed(const Logistic::Params<S>& p, const int* poff, int dir) {
+  return {{p.growth_rate, S(poff[0] == dir)}, {p.carrying_capacity, S(poff[1] == dir)}};
+}
+template <typename S>
+__device__ __forceinline__ Exponential::Params<Dual<S>> seed(const Exponential::Params<S>& p, const int* poff,
+                                                             int dir) {
+  return {{p.growth_factor, S(poff[0] == dir)}};
 }
 template <typename S>
 __device__ __forceinline__ HHParams<Dual<S>> seed(const HHParams<S>& p, const int* poff, int dir) {

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel `bwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (body `_bwd_body` :752-828, VMEM variant :851, HBM-snapshot variant :832,
-// launched by `_bwd_call` :892) for an explicit Runge-Kutta step
-// (Lotka-Volterra) and for the Kvaerno3 step (`_make_sdirk_step_tiles`
+// launched by `_bwd_call` :892) for an explicit Runge-Kutta step (every
+// tableau; Lotka-Volterra here under RKF45, the units nll_bwd_erk_*.cu for
+// the tile models of pallas_ekf.py:79-107 under every tableau) and for the
+// Kvaerno3 step (`_make_sdirk_step_tiles`
 // :291-364 with the stage solve's custom_jvp :301-332; Hodgkin-Huxley
 // reduced-4, reduced-1 and full). Given the per-lane cotangent g of the NLL
 // it computes, per lane and for each direction of the launch's list,
@@ -84,10 +86,53 @@ ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f32)
 ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f64)
 #undef ODEUQ_DECLARE
 
-// dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
-// reduced-4, 2 reduced-1, 3 full. tableau: 0 RKF45, 1 Kvaerno3.
-// Instantiated: Lotka-Volterra x RKF45 (n = 2, L = 1 or 2) and the three
-// Hodgkin-Huxley variants x Kvaerno3 (n = 4, 7, 8; L = 1).
+// One unit each (nll_bwd_erk_*.cu): a model with a hand-written RHS under
+// the explicit tableaus (Lotka-Volterra under all but RKF45, which is
+// instantiated here), in float and double.
+#define ODEUQ_DECLARE_ERK(NAME)                                                                         \
+  extern "C" int NAME(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys, \
+                      const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows,     \
+                      void* dphys, void* dgamma, void* stream);
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lv_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lv_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lorenz_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lorenz_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_vdp_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_vdp_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_pendulum_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_pendulum_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_logistic_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_logistic_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_exponential_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_exponential_f64)
+#undef ODEUQ_DECLARE_ERK
+
+namespace {
+
+using ErkBwd = int (*)(int, int, const void*, int, int, const void*, const double*, double, const void*,
+                       const int*, int, void*, void*, void*);
+
+// model id, state size n, parameter count and the unit's entries (float, double)
+struct ErkBwdUnit {
+  int model, n, k;
+  ErkBwd f32, f64;
+};
+constexpr ErkBwdUnit kErkBwdUnits[] = {
+    {0, LotkaVolterra::N, LotkaVolterra::K, odeuq_nll_bwd_erk_lv_f32, odeuq_nll_bwd_erk_lv_f64},
+    {4, Lorenz::N, Lorenz::K, odeuq_nll_bwd_erk_lorenz_f32, odeuq_nll_bwd_erk_lorenz_f64},
+    {5, VanDerPol::N, VanDerPol::K, odeuq_nll_bwd_erk_vdp_f32, odeuq_nll_bwd_erk_vdp_f64},
+    {6, Pendulum::N, Pendulum::K, odeuq_nll_bwd_erk_pendulum_f32, odeuq_nll_bwd_erk_pendulum_f64},
+    {7, Logistic::N, Logistic::K, odeuq_nll_bwd_erk_logistic_f32, odeuq_nll_bwd_erk_logistic_f64},
+    {8, Exponential::N, Exponential::K, odeuq_nll_bwd_erk_exponential_f32, odeuq_nll_bwd_erk_exponential_f64},
+};
+
+}  // namespace
+
+// dtype: 0 float32, 1 float64. model and tableau ids as in nll_fwd.cu.
+// Instantiated: every explicit tableau on Lotka-Volterra, Lorenz, van der
+// Pol, the pendulum, logistic and exponential growth (L = 1, and L = n for
+// n > 1) and the three Hodgkin-Huxley variants x Kvaerno3 (n = 4, 7, 8;
+// L = 1).
 // phys: [k_params, batch]; ys: [n_obs, obs_dim]; g: [batch] NLL cotangent;
 // rows: the n_rows parameter rows to differentiate (host memory, distinct);
 // out dphys: [k_params, batch], written on those rows; out dgamma: [batch]
@@ -115,7 +160,14 @@ extern "C" int odeuq_nll_bwd(int dtype, int n, int obs_dim, int model, int table
                                                      rows, n_rows, dphys, dgamma, s);
     return -1;
   }
-  if (tableau != 1 || obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
+  if (tableau != 1) {
+    for (const ErkBwdUnit& u : kErkBwdUnits)
+      if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1))
+        return (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g, rows,
+                                            n_rows, dphys, dgamma, stream);
+    return -1;
+  }
+  if (obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
   const bool f32 = dtype == 0;
   if (model == 1 && n == 4)
     return (f32 ? odeuq_nll_bwd_hh4_f32 : odeuq_nll_bwd_hh4_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,

@@ -1,9 +1,10 @@
 // The NLL-gradient kernel templates and their launchers, shared by
-// nll_bwd.cu (the dispatcher and the Lotka-Volterra instantiations, one
-// thread per lane and direction) and the nll_bwd_hh*.cu units, one Kvaerno3
-// Hodgkin-Huxley instantiation each on a team of threads per lane and
-// direction (so that nvcc builds them in parallel). See nll_bwd.cu for the
-// design.
+// nll_bwd.cu (the dispatcher and the Lotka-Volterra x RKF45
+// instantiations, one thread per lane and direction), the nll_bwd_erk_*.cu
+// units (one model each under the explicit tableaus, one thread per lane
+// and direction) and the nll_bwd_hh*.cu units, one Kvaerno3 Hodgkin-Huxley
+// instantiation each on a team of threads per lane and direction (so that
+// nvcc builds them in parallel). See nll_bwd.cu for the design.
 
 #pragma once
 
@@ -72,6 +73,38 @@ int launch(const void* phys, int k_params, int batch, const void* ys, const doub
   return static_cast<int>(cudaGetLastError());
 }
 
+// An explicit tableau of a unit (nll_bwd_erk_*.cu) at L = 1 or, for n > 1,
+// L = n; -1 for another observation size.
+template <typename S, class Model, class Tab>
+int launch_sizes(int obs_dim, const void* phys, int k_params, int batch, const void* ys, const double* rig,
+                 double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys, void* dgamma,
+                 cudaStream_t stream) {
+  if (obs_dim == 1)
+    return launch<S, 1, Model, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys, dgamma,
+                                    stream);
+  if constexpr (Model::N > 1) {
+    if (obs_dim == Model::N)
+      return launch<S, Model::N, Model, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
+                                             dgamma, stream);
+  }
+  return -1;
+}
+
+// The tableau with id `tableau` (TableauId) among a unit's Tabs; -1 if none.
+template <typename S, class Model, class... Tabs>
+int launch_erk(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys,
+               const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,
+               void* dgamma, cudaStream_t stream) {
+  int err = -1;
+  (void)((tableau == TableauId<Tabs>::value
+              ? (err = launch_sizes<S, Model, Tabs>(obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g, rows,
+                                                    n_rows, dphys, dgamma, stream),
+                 true)
+              : false) ||
+         ...);
+  return err;
+}
+
 // The Kvaerno3 chain with L = 1 on dual numbers, one team of team_size(n)
 // threads per (lane, direction), one warp a block (team_chain.cuh);
 // blockIdx.y indexes the direction list.
@@ -125,4 +158,15 @@ int launch_team(const void* phys, int k_params, int batch, const void* ys, const
     return launch_team<REAL, HodgkinHuxley<DIM>>(phys, k_params, batch, ys, rig, gamma_sqrt, g,  \
                                                  rows, n_rows, dphys, dgamma,                     \
                                                  static_cast<cudaStream_t>(stream));              \
+  }
+
+// The C entry of one explicit-step unit: MODEL under the tableaus that
+// follow, in REAL, at L = 1 and (n > 1) L = n.
+#define ODEUQ_NLL_BWD_ERK(NAME, REAL, MODEL, ...)                                                        \
+  extern "C" int NAME(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys, \
+                      const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows,     \
+                      void* dphys, void* dgamma, void* stream) {                                            \
+    return launch_erk<REAL, MODEL, __VA_ARGS__>(tableau, obs_dim, phys, k_params, batch, ys, rig,          \
+                                                gamma_sqrt, g, rows, n_rows, dphys, dgamma,                \
+                                                static_cast<cudaStream_t>(stream));                       \
   }

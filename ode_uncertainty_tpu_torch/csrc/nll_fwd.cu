@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel `fwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (:722-742, launched by `_fwd_call` :866-890) for an explicit Runge-Kutta
-// step (`_erk_step_tiles` :171; Lotka-Volterra) and for the Kvaerno3 step
+// step (`_erk_step_tiles` :171, every tableau; Lotka-Volterra here under
+// RKF45, the units nll_fwd_erk_*.cu for the tile models of :79-107 under
+// every tableau) and for the Kvaerno3 step
 // (`_make_sdirk_step_tiles` :291-364; the single-compartment Hodgkin-Huxley
 // variants). Its plain PyTorch version, which the tests
 // and the on-card comparison hold this kernel against, is `nll_plain` in
@@ -90,10 +92,52 @@ ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f32)
 ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f64)
 #undef ODEUQ_DECLARE
 
+// One unit each (nll_fwd_erk_*.cu): a model with a hand-written RHS under
+// the explicit tableaus (Lotka-Volterra under all but RKF45, which is
+// instantiated here), in float and double.
+#define ODEUQ_DECLARE_ERK(NAME)                                                                     \
+  extern "C" int NAME(int tableau, int obs_dim, const void* phys, int batch, const void* ys,       \
+                      const double* rig, double gamma_sqrt, void* out, void* stream);
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lv_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lv_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lorenz_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lorenz_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_vdp_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_vdp_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_pendulum_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_pendulum_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_logistic_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_logistic_f64)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_exponential_f32)
+ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_exponential_f64)
+#undef ODEUQ_DECLARE_ERK
+
+namespace {
+
+using ErkFwd = int (*)(int, int, const void*, int, const void*, const double*, double, void*, void*);
+
+// model id, state size n, parameter count and the unit's entries (float, double)
+struct ErkFwdUnit {
+  int model, n, k;
+  ErkFwd f32, f64;
+};
+constexpr ErkFwdUnit kErkFwdUnits[] = {
+    {0, LotkaVolterra::N, LotkaVolterra::K, odeuq_nll_fwd_erk_lv_f32, odeuq_nll_fwd_erk_lv_f64},
+    {4, Lorenz::N, Lorenz::K, odeuq_nll_fwd_erk_lorenz_f32, odeuq_nll_fwd_erk_lorenz_f64},
+    {5, VanDerPol::N, VanDerPol::K, odeuq_nll_fwd_erk_vdp_f32, odeuq_nll_fwd_erk_vdp_f64},
+    {6, Pendulum::N, Pendulum::K, odeuq_nll_fwd_erk_pendulum_f32, odeuq_nll_fwd_erk_pendulum_f64},
+    {7, Logistic::N, Logistic::K, odeuq_nll_fwd_erk_logistic_f32, odeuq_nll_fwd_erk_logistic_f64},
+    {8, Exponential::N, Exponential::K, odeuq_nll_fwd_erk_exponential_f32, odeuq_nll_fwd_erk_exponential_f64},
+};
+
+}  // namespace
+
 // dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
-// reduced-4, 2 reduced-1, 3 full. tableau: 0 RKF45, 1 Kvaerno3. Instantiated:
-// Lotka-Volterra x RKF45 (n = 2, L = 1 or 2) and each Hodgkin-Huxley variant
-// x Kvaerno3 (L = 1).
+// reduced-4, 2 reduced-1, 3 full, 4 Lorenz, 5 van der Pol, 6 pendulum, 7
+// logistic, 8 exponential. tableau: 0 RKF45, 1 Kvaerno3, 2 Heun-Euler, 3
+// Bogacki-Shampine 3(2), 4 Dormand-Prince 6(5). Instantiated: every explicit
+// tableau on models 0 and 4-8 (L = 1, and L = n for n > 1) and each
+// Hodgkin-Huxley variant x Kvaerno3 (L = 1).
 // phys: [k_params, batch] physical parameters; ys: [n_obs, obs_dim]; out: [batch].
 // Returns 0, a cudaError_t code (> 0), or a negative code for a configuration
 // no instantiation covers.
@@ -113,8 +157,13 @@ extern "C" int odeuq_nll_fwd(int dtype, int n, int obs_dim, int model, int table
       return launch<double, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
     return -1;
   }
-  if (tableau != 1 || obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1))
+  if (tableau != 1) {
+    for (const ErkFwdUnit& u : kErkFwdUnits)
+      if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1))
+        return (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, batch, ys, rig, gamma_sqrt, out, stream);
     return -1;
+  }
+  if (obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
   const bool f32 = dtype == 0;
   if (model == 1 && n == 4)
     return (f32 ? odeuq_nll_fwd_hh4_f32 : odeuq_nll_fwd_hh4_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);

@@ -1,8 +1,10 @@
 // The forward-NLL kernel templates and their launchers, shared by
-// nll_fwd.cu (the dispatcher and the Lotka-Volterra instantiations, one
-// thread per lane) and the nll_fwd_hh*.cu units, one Kvaerno3
-// Hodgkin-Huxley instantiation each on a team of threads per lane (so that
-// nvcc builds them in parallel). See nll_fwd.cu for the design.
+// nll_fwd.cu (the dispatcher and the Lotka-Volterra x RKF45
+// instantiations, one thread per lane), the nll_fwd_erk_*.cu units (one
+// model each under the explicit tableaus, one thread per lane) and the
+// nll_fwd_hh*.cu units, one Kvaerno3 Hodgkin-Huxley instantiation each on
+// a team of threads per lane (so that nvcc builds them in parallel). See
+// nll_fwd.cu for the design.
 
 #pragma once
 
@@ -34,6 +36,30 @@ int launch(const void* phys, int batch, const void* ys, const double* rig_host, 
       static_cast<const T*>(phys), batch, static_cast<const T*>(ys), rig, T(gamma_sqrt),
       static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// An explicit tableau of a unit (nll_fwd_erk_*.cu) at L = 1 or, for n > 1,
+// L = n; -1 for another observation size.
+template <typename T, class Model, class Tab>
+int launch_sizes(int obs_dim, const void* phys, int batch, const void* ys, const double* rig, double gamma_sqrt,
+                 void* out, cudaStream_t stream) {
+  if (obs_dim == 1) return launch<T, 1, Model, Tab>(phys, batch, ys, rig, gamma_sqrt, out, stream);
+  if constexpr (Model::N > 1) {
+    if (obs_dim == Model::N) return launch<T, Model::N, Model, Tab>(phys, batch, ys, rig, gamma_sqrt, out, stream);
+  }
+  return -1;
+}
+
+// The tableau with id `tableau` (TableauId) among a unit's Tabs; -1 if none.
+template <typename T, class Model, class... Tabs>
+int launch_erk(int tableau, int obs_dim, const void* phys, int batch, const void* ys, const double* rig,
+               double gamma_sqrt, void* out, cudaStream_t stream) {
+  int err = -1;
+  (void)((tableau == TableauId<Tabs>::value
+              ? (err = launch_sizes<T, Model, Tabs>(obs_dim, phys, batch, ys, rig, gamma_sqrt, out, stream), true)
+              : false) ||
+         ...);
+  return err;
 }
 
 // The Kvaerno3 chain with L = 1 on one team of team_size(n) threads per
@@ -73,4 +99,13 @@ int launch_team(const void* phys, int batch, const void* ys, const double* rig_h
                       double gamma_sqrt, void* out, void* stream) {                           \
     return launch_team<REAL, HodgkinHuxley<DIM>>(phys, batch, ys, rig, gamma_sqrt, out,      \
                                                  static_cast<cudaStream_t>(stream));         \
+  }
+
+// The C entry of one explicit-step unit: MODEL under the tableaus that
+// follow, in REAL, at L = 1 and (n > 1) L = n.
+#define ODEUQ_NLL_FWD_ERK(NAME, REAL, MODEL, ...)                                                    \
+  extern "C" int NAME(int tableau, int obs_dim, const void* phys, int batch, const void* ys,        \
+                      const double* rig, double gamma_sqrt, void* out, void* stream) {              \
+    return launch_erk<REAL, MODEL, __VA_ARGS__>(tableau, obs_dim, phys, batch, ys, rig, gamma_sqrt, \
+                                                out, static_cast<cudaStream_t>(stream));           \
   }

@@ -26,10 +26,13 @@ last block.
 Scope (:func:`supports`): the exact ``SqrtEKF`` type with
 ``disable_cov_update=True``, a uniform observation grid read in row order,
 and a (model, solver) pair and (state, observation) size the kernels are
-instantiated for: Lotka-Volterra with RKF45, n = 2 and L = 1 or 2, and
-the three single-compartment Hodgkin-Huxley variants with Kvaerno3,
-n = 4, 7 or 8 and L = 1, each with both kernels; :meth:`NllGrad.launch`
-raises for the others. The gradient of the implicit step follows the
+instantiated for (``_KERNELS``, ``_SIZES``): every explicit tableau
+(Heun-Euler, Bogacki-Shampine 3(2), RKF45, Dormand-Prince 6(5)) on
+Lotka-Volterra, Lorenz, van der Pol, the pendulum, logistic and
+exponential growth, at L = 1 and L = n; the three single-compartment
+Hodgkin-Huxley variants with Kvaerno3, n = 4, 7 or 8 and L = 1; each with
+both kernels; :meth:`NllGrad.launch` raises for the others. Each launch
+also counts in ``launches_by_chain`` under its instantiation. The gradient of the implicit step follows the
 stage solve's implicit-function rule, not the Newton loop
 (``ChainMath._kvaerno3_step``).
 
@@ -71,6 +74,8 @@ hh = importlib.import_module("ode_uncertainty_tpu_torch.models.hodgkin_huxley")
 # gradient kernel; the sharded estimator runs a thread per shard): the lock
 # keeps every increment.
 launches: Dict[str, int] = {"nll_fwd": 0, "nll_bwd": 0}
+# the same launches by instantiation: (kernel, model, solver, n, L, dtype name)
+launches_by_chain: Dict[tuple, int] = {}
 _launches_lock = threading.Lock()
 
 
@@ -78,11 +83,20 @@ def reset_launches() -> None:
     with _launches_lock:
         for k in launches:
             launches[k] = 0
+        launches_by_chain.clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, cm: Optional["ChainMath"] = None) -> None:
     with _launches_lock:
         launches[name] += 1
+        if cm is not None:
+            key = chain_key(name, cm)
+            launches_by_chain[key] = launches_by_chain.get(key, 0) + 1
+
+
+def chain_key(name: str, cm: "ChainMath") -> tuple:
+    """The instantiation a launch of kernel ``name`` on chain ``cm`` runs."""
+    return (name, cm.model_name, cm.solver.name, cm.n, cm.L, str(cm.dtype).removeprefix("torch."))
 
 
 # --------------------------------------------------------------------------
@@ -129,7 +143,75 @@ def _generic_jvp(rhs):
     return rhs_jvp
 
 
-TILE_RHS = {"lotka_volterra": (_rhs_lotka_volterra, _rhs_jvp_lotka_volterra)}
+def _rhs_lorenz(t, y, p):
+    a, b, c = y
+    return [p["sigma"] * (b - a), a * (p["rho"] - c) - b, a * b - p["beta"] * c]
+
+
+def _rhs_jvp_lorenz(t, y, dy, p):
+    a, b, c = y
+    da, db, dc = dy
+    return [
+        p["sigma"] * (db - da),
+        (da * (p["rho"] - c) + a * -dc) - db,
+        (da * b + a * db) - p["beta"] * dc,
+    ]
+
+
+def _rhs_van_der_pol(t, y, p):
+    pos, vel = y
+    return [vel, p["damping"] * (1.0 - pos * pos) * vel - pos]
+
+
+def _rhs_jvp_van_der_pol(t, y, dy, p):
+    pos, vel = y
+    dpos, dvel = dy
+    w = p["damping"] * (1.0 - pos * pos)
+    dw = p["damping"] * -(dpos * pos + pos * dpos)
+    return [dvel, (dw * vel + w * dvel) - dpos]
+
+
+def _rhs_pendulum(t, y, p):
+    pos, vel = y
+    return [vel, -9.81 / p["length"] * torch.sin(pos)]
+
+
+def _rhs_jvp_pendulum(t, y, dy, p):
+    pos, vel = y
+    dpos, dvel = dy
+    return [dvel, -9.81 / p["length"] * (torch.cos(pos) * dpos)]
+
+
+def _rhs_logistic(t, y, p):
+    (x,) = y
+    return [p["growth_rate"] * x * (1.0 - x / p["carrying_capacity"])]
+
+
+def _rhs_jvp_logistic(t, y, dy, p):
+    (x,) = y
+    (dx,) = dy
+    r, k = p["growth_rate"], p["carrying_capacity"]
+    return [(r * dx) * (1.0 - x / k) + (r * x) * -(dx / k)]
+
+
+def _rhs_exponential(t, y, p):
+    (x,) = y
+    return [p["growth_factor"] * x]
+
+
+def _rhs_jvp_exponential(t, y, dy, p):
+    (dx,) = dy
+    return [p["growth_factor"] * dx]
+
+
+TILE_RHS = {
+    "lotka_volterra": (_rhs_lotka_volterra, _rhs_jvp_lotka_volterra),
+    "lorenz": (_rhs_lorenz, _rhs_jvp_lorenz),
+    "van_der_pol": (_rhs_van_der_pol, _rhs_jvp_van_der_pol),
+    "pendulum": (_rhs_pendulum, _rhs_jvp_pendulum),
+    "logistic": (_rhs_logistic, _rhs_jvp_logistic),
+    "exponential": (_rhs_exponential, _rhs_jvp_exponential),
+}
 for _variant in ("full", "reduced-1", "reduced-4"):
     _rhs = _make_rhs_hodgkin_huxley(_variant)
     TILE_RHS[f"hodgkin_huxley_{_variant}"] = (_rhs, _generic_jvp(_rhs))
@@ -142,23 +224,50 @@ _MODEL_IDS = {
     "hodgkin_huxley_reduced-4": 1,
     "hodgkin_huxley_reduced-1": 2,
     "hodgkin_huxley_full": 3,
+    "lorenz": 4,
+    "van_der_pol": 5,
+    "pendulum": 6,
+    "logistic": 7,
+    "exponential": 8,
 }
 _MODEL_PARAMS = {
     "lotka_volterra": ("alpha", "beta", "gamma", "delta"),
     "hodgkin_huxley_reduced-4": _HH_PARAMS,
     "hodgkin_huxley_reduced-1": _HH_PARAMS,
     "hodgkin_huxley_full": _HH_PARAMS,
+    "lorenz": ("sigma", "rho", "beta"),
+    "van_der_pol": ("damping",),
+    "pendulum": ("length",),
+    "logistic": ("growth_rate", "carrying_capacity"),
+    "exponential": ("growth_factor",),
 }
-_SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1}
+_SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1, "heun_euler": 2, "bs32": 3, "dopri65": 4}
+_ERK_TABLEAUS = ("heun_euler", "bs32", "rkf45", "dopri65")
+_ERK_MODELS = ("lotka_volterra", "lorenz", "van_der_pol", "pendulum", "logistic", "exponential")
 # (model, solver) -> the kernels instantiated for it: "fwd" (nll_fwd) and
-# "bwd" (nll_bwd, the gradient)
-_KERNELS = {
-    ("lotka_volterra", "rkf45"): ("fwd", "bwd"),
+# "bwd" (nll_bwd, the gradient). Every ERK tableau on the models with a
+# hand-written device RHS (csrc/ekf_chain.cuh; rkf45 on Lotka-Volterra in
+# nll_fwd.cu / nll_bwd.cu, the rest in nll_{fwd,bwd}_erk_*.cu), Kvaerno3 on
+# the single-compartment Hodgkin-Huxley variants (nll_{fwd,bwd}_hh*.cu).
+_KERNELS = {(m, tab): ("fwd", "bwd") for m in _ERK_MODELS for tab in _ERK_TABLEAUS}
+_KERNELS.update({
     ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd", "bwd"),
     ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd", "bwd"),
     ("hodgkin_huxley_full", "kvaerno3"): ("fwd", "bwd"),
+})
+# model -> the (state size n, observation size L) instantiated: L = 1 (one
+# observed row) and L = n (the whole state), Hodgkin-Huxley at L = 1
+_SIZES = {
+    "lotka_volterra": {(2, 1), (2, 2)},
+    "lorenz": {(3, 1), (3, 3)},
+    "van_der_pol": {(2, 1), (2, 2)},
+    "pendulum": {(2, 1), (2, 2)},
+    "logistic": {(1, 1)},
+    "exponential": {(1, 1)},
+    "hodgkin_huxley_reduced-4": {(4, 1)},
+    "hodgkin_huxley_reduced-1": {(7, 1)},
+    "hodgkin_huxley_full": {(8, 1)},
 }
-_SIZES = {(2, 1), (2, 2), (4, 1), (7, 1), (8, 1)}  # (state size n, observation size L)
 _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
 
@@ -166,9 +275,9 @@ def no_grad_kernel(model_name: str, solver_name: str, n: int) -> str:
     """Why ``nll_bwd`` has no instantiation for this chain."""
     return (
         f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the gradient kernel is "
-        "instantiated for Lotka-Volterra with RKF45 and for the single-compartment Hodgkin-Huxley variants "
-        "with Kvaerno3 (n = 4, 7, 8); the entry points take make_nll + autograd (inference/nll.py) "
-        "for every other configuration"
+        f"instantiated for every ERK tableau ({', '.join(_ERK_TABLEAUS)}) on {', '.join(_ERK_MODELS)} "
+        "and for Kvaerno3 on the single-compartment Hodgkin-Huxley variants (n = 4, 7, 8); the entry "
+        "points take make_nll + autograd (inference/nll.py) for every other configuration"
     )
 
 
@@ -195,7 +304,7 @@ def supports(model, solver, ekf, obs, grad: bool = False) -> bool:
         # exact type: a subclass may compute a different likelihood
         and type(ekf) is SqrtEKF
         and getattr(ekf, "disable_cov_update", False)
-        and (model.state_size, obs.obs_dim) in _SIZES
+        and (model.state_size, obs.obs_dim) in _SIZES.get(model.name, ())
         and detect_uniform(obs) is not None
     )
 
@@ -708,7 +817,7 @@ class NllFwd:
             )
         if err != 0:
             raise RuntimeError(f"nll_fwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
-        count_launch(self.name)
+        count_launch(self.name, cm)
         return out
 
 
@@ -786,7 +895,7 @@ class NllGrad:
             )
         if err != 0:
             raise RuntimeError(f"nll_bwd launch failed ({err}): {lib.odeuq_error_string(err).decode()}")
-        count_launch(self.name)
+        count_launch(self.name, cm)
         return dphys, dgamma
 
 

@@ -11,15 +11,20 @@
   evaluate — NLL landscape over a parameter grid per tempering stage; writes
              ``param_evals``, ``nll_evals``, ``gammas`` and ``timings``.
 
-When ``supports()`` holds and neither ``initial_state_parametrized`` nor
-``parameter_sensitivity`` is on, the NLL goes through the CUDA kernels of
-``ops/nll_kernel.py`` (``nll_fwd``, and for ``optimize``'s gradient
-``nll_bwd``), or their plain versions on CPU tensors; else through the
-port's ``make_nll`` (with autograd for the gradient, through the Kvaerno3
-stage-solve rule at second order for the implicit step), which on the CPU
-runs about ten times slower than the plain versions (its linearization goes
-through ``torch.func.jvp``). Both routes advance the step time as the
-running sum ``t += h`` in the working type, as the JAX CLI's XLA
+The kernels are the port's default route, where the JAX CLI's default is
+its XLA ``make_nll`` (it takes its Pallas kernel only with ``--set
+nll_impl=pallas``). When ``supports()`` holds and neither
+``initial_state_parametrized`` nor ``parameter_sensitivity`` is on, the NLL
+goes through the CUDA kernels of ``ops/nll_kernel.py`` (``nll_fwd``, and
+for ``optimize``'s gradient ``nll_bwd``), or their plain versions on CPU
+tensors; else, or with ``--set nll_impl=xla`` or ``--set
+nll_fast_path=false``, through the port's ``make_nll`` (with autograd for
+the gradient, through the Kvaerno3 stage-solve rule at second order for the
+implicit step), which on the CPU runs about ten times slower than the plain
+versions (its linearization goes through ``torch.func.jvp``).
+``nll_fast_path`` reaches ``make_nll`` as the JAX CLI passes it (false: the
+general step loop on a uniform grid too). Both routes advance the step time
+as the running sum ``t += h`` in the working type, as the JAX CLI's XLA
 ``make_nll`` does. The result records the route taken. Results go to the
 ``output`` path: H5, or ``.npz`` for a path with that suffix.
 
@@ -37,8 +42,14 @@ Usage:
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
       --experiment params/hodgkinhuxley2_c2_r4 \\
       --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_c2_r4.npz [--set output=out.npz]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation optimize \\
+      --experiment params/pendulum \\
+      --set 'filter_builder={"class_path": "SQRT_EKF", "init_args": {"disable_cov_update": True}}' \\
+      --set y_path=ode_uncertainty_tpu_torch/data/pendulum.npz [--set output=out.npz]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/lotkavolterra2 [--set device=cpu] [--set tN=2] [--set output=out.h5]
+  python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
+      --experiment params/lotkavolterra2 --set nll_impl=xla [--set device=cpu] [--set tN=2]
   python -m ode_uncertainty_tpu_torch.run_parameter_estimation evaluate \\
       --experiment params/hodgkinhuxley1_r4 \\
       --set y_path=ode_uncertainty_tpu_torch/data/hodgkinhuxley_r4.npz [--set device=cpu --set tN=0.3]
@@ -109,10 +120,16 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
     parameters and ``parameter_sensitivity`` (reference
     ``inference/nll.py:92-106``) weights the process noise per lane by the
     step's parameter Jacobian; the kernels (one x0 and one q_sqrt for every
-    lane) compute neither, so either flag takes make_nll."""
+    lane) compute neither, so either flag takes make_nll. So do
+    ``nll_impl=xla`` and ``nll_fast_path`` false, the keys that ask for the
+    JAX CLI's default route; ``nll_fast_path`` reaches make_nll as the JAX
+    CLI passes it."""
     init_param = bool(cfg.get("initial_state_parametrized", False))
     sensitivity = bool(cfg.get("parameter_sensitivity", False))
-    if not (init_param or sensitivity) and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad):
+    fast_path = bool(cfg.get("nll_fast_path", True))
+    kernels_allowed = fast_path and cfg.get("nll_impl") != "xla"
+    if (kernels_allowed and not (init_param or sensitivity)
+            and supports(rig.model, rig.solver, rig.ekf, rig.obs, grad=grad)):
         return make_nll_cuda(
             rig.model, rig.solver, rig.ekf, rig.spec, rig.obs, rig.state0, rig.num_steps, rig.q_sqrt,
             accumulate_time=True,
@@ -128,6 +145,7 @@ def batched_nll(rig: Rig, cfg, grad: bool = False):
         x0_raw=rig.x0_raw,
         initial_state_parametrized=init_param,
         parameter_sensitivity=sensitivity,
+        fast_path=fast_path,
     )
     return (lambda p, gamma_sqrt: nll(p, rig.q_sqrt, gamma_sqrt)), False
 

@@ -1,13 +1,14 @@
 """Probe of the NLL kernels on one NVIDIA GPU: what the compiled code is
 made of and where a launch's time goes.
 
-    python ode_uncertainty_tpu_torch/utils/kernel_probe.py [--root CHECKOUT] [--parts lv,hh] [--out FILE]
+    python ode_uncertainty_tpu_torch/utils/kernel_probe.py [--root CHECKOUT] [--parts lv,erk,hh] [--out FILE]
 
 ``--root`` names the checkout whose package (and so whose ``csrc/``) is
 probed, default the one this file is in, so one call can probe two trees
 side by side. ``--parts`` picks the timings: ``lv`` (the Lotka-Volterra
-kernels with the explicit RKF45 step) and ``hh`` (the Kvaerno3
-Hodgkin-Huxley ones), default both. It prints one JSON object (also
+kernels with the explicit RKF45 step), ``erk`` (every other explicit-step
+instantiation: the tile models under every tableau) and ``hh`` (the
+Kvaerno3 Hodgkin-Huxley ones), default ``lv,hh``. It prints one JSON object (also
 written to ``--out``):
 
 * ``sass``: for each NLL kernel of the built library (Lotka-Volterra and
@@ -27,6 +28,12 @@ written to ``--out``):
   time between predict and correct); the gradient at B = 1 and 256 on the
   2 optimized rows, without and with d/d gamma^1/2, in float32 and float64;
   and bench.py's `lv` shape (B = 8192, L = 2, a correct every 10th step);
+* ``times`` (``erk``): each explicit-step instantiation of Lotka-Volterra
+  (Heun-Euler, Bogacki-Shampine 3(2), Dormand-Prince 6(5)), Lorenz, van der
+  Pol, the pendulum, logistic and exponential growth (every tableau), at
+  L = 1 and L = n, float32 and float64, on a 1,000-step rig with a correct
+  a step: the forward at B = 1 and 256, the gradient at B = 256 over every
+  parameter row;
 * ``times`` (``hh``): on params/hodgkinhuxley1_r4 at its full 10^4 steps:
   the forward at B = 1, 100 and 256, the forward with the Newton iterations
   cut to 0 and with a correct every 10th step only, the n = 8 forward at
@@ -163,19 +170,25 @@ def arith(nvcc: str, build_dir: Path, csrc: Path) -> dict:
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--parts", default="lv,hh", help="comma-separated: lv, hh")
+    ap.add_argument("--parts", default="lv,hh", help="comma-separated: lv, erk, hh")
     ap.add_argument("--out", default=None)
     return ap.parse_args()
 
 
 def kernel_label(mangled: str) -> str:
-    """A readable name for a mangled NLL kernel: kernel, model, n, L, type."""
+    """A readable name for a mangled NLL kernel: kernel, model (and
+    tableau), n, L, type."""
+    import chip_smoke
+
     m = re.search(r"(nll_(?:fwd|bwd))(\w*?_team)?_kernelI([fd])((?:Li\d+E)*)", mangled)
     ints = re.findall(r"Li(\d+)E", m.group(4))
     if "HodgkinHuxley" in mangled:
         model, n, obs = "hh", re.search(r"HodgkinHuxleyILi(\d+)E", mangled).group(1), "1"
-    else:  # thread per lane: <T, N, L, ...>; a team: <T, L, ...>
-        model, n, obs = "lv", ints[0] if len(ints) == 2 else "2", ints[-1]
+    else:  # thread per lane: <T, N, L, Model, Tableau>
+        names = [mangled[k.end():k.end() + int(k.group(1))] for k in re.finditer(r"NS_(\d+)", mangled)]
+        model = "/".join(chip_smoke.PTXAS_MODELS.get(x, chip_smoke.PTXAS_TABLEAUS.get(x)) for x in names
+                         if x in chip_smoke.PTXAS_MODELS or x in chip_smoke.PTXAS_TABLEAUS)
+        n, obs = ints[0], ints[-1]
     team = " team" if m.group(2) else ""
     return f"{m.group(1)}{team} {model} n={n} L={obs} {'f32' if m.group(3) == 'f' else 'f64'}"
 
@@ -344,6 +357,31 @@ def hh_times(root: Path) -> tuple:
     return times, {"hh4_steps": k32.cm.n_obs, "hh4_gamma_sqrt": gs0}
 
 
+def erk_times() -> tuple:
+    """Every explicit-step instantiation of the other tile models and
+    tableaus (chip_smoke.erk_chains) on its timing rig: 1,000 steps, a
+    correct a step (params/pendulum's shape), gamma^1/2 = 0.1; the forward
+    at B = 1 and 256, the gradient at B = 256 over every row."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    times = {}
+    for model, tab, L in chip_smoke.erk_chains():
+        for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            kern = chip_smoke.erk_kernel(model, tab, L, dtype, chip_smoke.ERK_TIMING_STEPS, 1)
+            p = torch.as_tensor(np.random.default_rng(0).uniform(size=(256, kern.spec.num_opt)), dtype=dtype,
+                                device=chip_smoke.DEVICE)
+            phys, g = kern.physical(p), torch.ones(256, dtype=dtype, device=chip_smoke.DEVICE)
+            phys1 = phys[:, :1].contiguous()
+            name = f"{model}_{tab}_L{L}_{label}"
+            times[f"fwd_{name}_B1"] = median_ms(lambda: kern.launch(phys1, 0.1))
+            times[f"fwd_{name}_B256"] = median_ms(lambda: kern.launch(phys, 0.1))
+            times[f"bwd_{name}_B256_{kern.cm.k_params}dir"] = median_ms(lambda: kern.grad.launch(phys, 0.1, g, False))
+    return times, {"erk_steps": chip_smoke.ERK_TIMING_STEPS, "erk_gamma_sqrt": 0.1}
+
+
 def main() -> int:
     args = _args()
     root = Path(args.root).resolve()
@@ -369,6 +407,10 @@ def main() -> int:
               "times": {}, "shape": {"reps": REPS}}
     if "lv" in parts:
         times, shape = lv_times()
+        report["times"].update(times)
+        report["shape"].update(shape)
+    if "erk" in parts:
+        times, shape = erk_times()
         report["times"].update(times)
         report["shape"].update(shape)
     if "hh" in parts:

@@ -25,7 +25,10 @@ Lotka-Volterra kernels run on the same ragged batches (a 100-step rig with
 a correct after every step at L = 1 and every 10th at L = 2) against the
 float64 plain version on the host's CPU: values float64 rtol 1e-9, float32
 |k - p| / (|p| + 1) <= 2e-4; gradients float64 rtol 1e-9, float32
-|k - p| / (|p| + 1) <= 5e-3.
+|k - p| / (|p| + 1) <= 5e-3. So do the explicit-step instantiations of the
+other tile models and tableaus (every tableau on Lotka-Volterra, Lorenz, van
+der Pol, the pendulum, logistic and exponential growth, L = 1 and L = n;
+40-step rigs with a correct every second step), at gamma^1/2 = 0.1 and 0.
 """
 
 from pathlib import Path
@@ -39,6 +42,8 @@ from ode_uncertainty_tpu_torch.filters import SqrtEKF
 from ode_uncertainty_tpu_torch.inference import make_obs_model, make_param_spec
 from ode_uncertainty_tpu_torch.ops import const_diag, nll_kernel
 from ode_uncertainty_tpu_torch.utils.config import build_config, load_experiment, parse_literal
+
+import chip_smoke  # the erk rigs, like the package imported from the repository root
 
 DATA = Path(__file__).resolve().parents[1] / "ode_uncertainty_tpu_torch" / "data"
 
@@ -337,3 +342,37 @@ def test_kvaerno3_team_grad_kernel_on_ragged_batches(dtype, experiment, data):
             assert rel <= 1e-9, (batch, rel)
         else:
             assert lane <= 1e-2, (batch, lane)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model,tableau,L", chip_smoke.erk_chains())
+def test_erk_instantiations_match_plain_versions_on_ragged_batches(dtype, model, tableau, L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NLL kernels have no CPU mode (chip_smoke.py runs them)")
+    # chip_smoke's erk_parity rigs at 40 steps, a correct every second step
+    fn = chip_smoke.erk_kernel(model, tableau, L, getattr(torch, dtype), 40, 2, "cuda")
+    fn64 = chip_smoke.erk_kernel(model, tableau, L, torch.float64, 40, 2, "cpu")
+    k = fn64.spec.num_opt
+    p = np.random.default_rng(9).uniform(size=(max(_RAGGED), k))
+    phys64 = fn64.physical(torch.as_tensor(p))
+    ones = torch.ones(max(_RAGGED), dtype=torch.float64)
+    for gamma_sqrt in (0.1, 0.0):
+        want = nll_kernel.nll_plain(fn64.cm, phys64, fn64.ys, gamma_sqrt).numpy()
+        dphys, dgamma = nll_kernel.nll_grad_plain(fn64.cm, phys64, fn64.ys, torch.full_like(ones, gamma_sqrt), ones)
+        want_grad = torch.cat([dphys, dgamma[None]]).numpy()
+        for batch in _RAGGED:
+            phys = fn.physical(torch.as_tensor(p[:batch], device="cuda"))
+            got = fn.launch(phys, gamma_sqrt)
+            dp, dg = fn.grad.launch(phys, gamma_sqrt, torch.ones(batch, dtype=fn.cm.dtype, device="cuda"))
+            torch.cuda.synchronize()
+            got = got.double().cpu().numpy()
+            got_grad = torch.cat([dp, dg[None]]).double().cpu().numpy()
+            assert got.shape == (batch,) and np.isfinite(got).all() and np.isfinite(got_grad).all()
+            rel, lane = _grad_err(got_grad, want_grad[:, :batch])
+            if dtype == "float64":
+                np.testing.assert_allclose(got, want[:batch], rtol=1e-9, atol=0.0)
+                assert rel <= 1e-9, (batch, rel)
+            else:
+                assert (np.abs(got - want[:batch]) / (np.abs(want[:batch]) + 1.0)).max() <= 2e-4
+                assert lane <= 5e-3, (batch, lane)
