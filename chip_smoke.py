@@ -54,14 +54,14 @@ Phases, each printing one JSON line with its own wall seconds:
   7. timing       one nll_fwd launch of evaluate's shape and one nll_bwd launch
                   at optimize's widest dispatch on its optimized rows, each the
                   median of 7 CUDA-event timings, beside its bound and its plain
-                  version's time at a cut horizon of 200 steps; each also at
+                  version's time at a cut horizon of PLAIN_TIMING_STEPS (100); each also at
                   B = 1 (one lane, the width of optimize's stragglers); the
                   nll_bwd launch also over every row, with d/d gamma^1/2 and in
                   float64.
   8. throughput   bench.py's `lv` workload: B = 8192, 2000 steps, H = I,
                   an observation every 10 steps, float32, gamma = 0.01; median
                   of CUDA-event-timed launches; the plain version once at
-                  B = 1024, 200 steps.
+                  B = 1024, PLAIN_TIMING_STEPS steps.
   9. hh_parity    the Kvaerno3 nll_fwd (float64 and float32) against its float64
                   plain version (on the host's CPU) on Hodgkin-Huxley rigs with
                   the committed observations, 256 lanes, half at the first
@@ -158,13 +158,13 @@ Phases, each printing one JSON line with its own wall seconds:
                   steps. The n = 8 gradient at hh_full_optimize's widest
                   dispatch on its 7 rows (float32 and float64) and at
                   bench.py's hh_full shape (B = 512, 11 rows, float32),
-                  median of HH_FULL_TIMING_REPS (2), each beside its bound
+                  median of HH_FULL_TIMING_REPS (1), each beside its bound
                   and its plain version at HH_N8_PLAIN_TIMING_STEPS steps.
  18. erk_parity   every explicit-step instantiation of the other tile models
                   and tableaus (Heun-Euler, Bogacki-Shampine 3(2), RKF45,
                   Dormand-Prince 6(5) on Lotka-Volterra (not RKF45), Lorenz,
                   van der Pol, the pendulum, logistic and exponential
-                  growth, at L = 1 and L = n; 38 chains, 152
+                  growth, at every L in 1..n; 42 chains, 168
                   instantiations), nll_fwd and nll_bwd (every parameter row
                   and each lane's d/d gamma^1/2), float64 and float32,
                   against the float64 plain version on the host's CPU, on
@@ -216,6 +216,54 @@ Phases, each printing one JSON line with its own wall seconds:
                   launches on the paths of phases 19-21, ms, bound,
                   registers and spill stores from ptxas, the max_abs_err of
                   erk_parity's float32 lanes).
+ 22a. team_parity  every team instantiation beside HH x Kvaerno3
+                  (Kvaerno3 on every tile model at every L in 1..n; each
+                  single-compartment HH
+                  variant under the four explicit tableaus at L = 1; 23
+                  chains, 92 instantiations), nll_fwd and nll_bwd (every
+                  row and d/d gamma^1/2), float64 and float32, against the
+                  float64 plain version on the host's CPU: the tile models
+                  on erk_parity's rigs at TEAM_TILE_STEPS (50), HH on its
+                  experiment's rig and observations over TEAM_HH_STEPS (6)
+                  from t0 = 9.98 (the stimulus edge inside), batches of 1,
+                  33 and 256 at gamma^1/2 = 0.1 and 0: float64 1e-9 /
+                  1e-8; float32 p99 5e-4 / 1e-2 (Kvaerno3) and 2e-4 / 5e-3
+                  (explicit). Its plain references run in TEAM_REF_GROUPS
+                  processes started after the build.
+ 22b. lv_kv3_optimize  `optimize` on params/lotkavolterra2 with
+                  solver_builder Kvaerno3 (h = 0.01), nothing cut: the route
+                  and its two instantiations alone, >= 95% finite, the best
+                  NLL at most the generating parameters' plus 1e-3
+                  relative, (alpha, beta) within 10%; LVKV3_LANES float64
+                  lanes at full horizon against the plain version on the
+                  host's CPU (1e-9, 1e-8).
+ 22c. lv_kv3_evaluate  `evaluate` on the same (20 x 20 x 4): shape, finite,
+                  its instantiation alone, 64 points equal bit for bit to a
+                  direct launch of the entry points' wrapper.
+ 22d. hh_rkf45_evaluate  `evaluate` on params/hodgkinhuxley1_r4 with
+                  solver_builder RKF45 (10^4 steps, 100 g_Na x 4): 4
+                  launches of its instantiation, the last stage's argmin
+                  within 10% of 25, every point equal bit for bit to a
+                  direct launch (a non-finite point, as the JAX CLI's
+                  float32 run has, equal too).
+ 22e. hh_rkf45_optimize  `optimize` on the same, 100 restarts x 4 stages,
+                  lbfgs_maxiter HH_RKF45_LBFGS_MAXITER (10): its two
+                  instantiations alone, >= 95% finite, every stage descends;
+                  HH_RKF45_LANES float64 lanes of the same model, solver and
+                  time rule over HH_RKF45_LANES_STEPS (200) steps from
+                  t0 = 9 (the stimulus onset inside) against the plain
+                  version on the host's CPU (1e-9, 1e-8).
+ 22f. team_timing  every team instantiation at B = 256: the tile models over
+                  1,000 steps with a correct a step (median of 3), HH from
+                  rest over 10^4 steps on reduced-4 and 2,000 on reduced-1
+                  and full (TEAM_HH_TIMING_STEPS: their explicit chains turn
+                  non-finite near step 2,420; median of 3; nll_bwd on the
+                  experiment's optimized rows; the timed lanes' finite count
+                  recorded), beside the bound (the plain version's counted
+                  operations) and the plain version's host time on
+                  team_parity's rig. The kernels line lists
+                  them under rows 1 and 3 (HH) and rows 2 and 4 (Kvaerno3
+                  on the tile models) as `instantiations`.
  23. ode_solver   the port's run_ode_solver (float64) on gt/lotkavolterra
                   (Dopri65) and noise_gt/lotkavolterra (Kvaerno3, noise of
                   variance 0.1 from a torch.Generator on the card), cut to
@@ -335,7 +383,7 @@ Phases, each printing one JSON line with its own wall seconds:
                   Wall seconds, dispatches and the kernels' summed device
                   seconds reported beside the unsharded run's.
  35. mesh_device  make_sharded_tempered_estimator over the same wrapper on 4
-                  shards, gammas 1e-2 and 0, max_iter 25: every lane's
+                  shards, gammas 1e-2 and 0, max_iter 15: every lane's
                   iterations and evaluations equal to the unsharded
                   make_tempered_estimator's, x within 1e-8 (normalized box).
  36. mesh_landscape  make_sharded_nll_landscape on 4 shards over evaluate's
@@ -352,22 +400,23 @@ Phases, each printing one JSON line with its own wall seconds:
                   float64 card against the float64 plain version on the
                   CPU (the device reference process) at rtol 1e-9 on the
                   lanes that are finite in float64.
- 39. compare_optimizer  `compare_optimizer --restarts 8 --maxiter 25` on
+ 39. compare_optimizer  `compare_optimizer --restarts 8 --maxiter 15` on
                   params/lotkavolterra2 (float64 on the card, the
                   synthesized observations): the table; the host and device
                   rows' best NLL finite.
  40. kernels      one JSON line with the kernel list (nll_fwd with the ERK step,
                   nll_fwd with the Kvaerno3 step, nll_bwd, nll_bwd with the
-                  Kvaerno3 step for n = 4, 7 and 8; launches by path; the
-                  two ERK rows with their `instantiations`), the
+                  Kvaerno3 step for n = 4, 7 and 8; launches by path; each
+                  row with its `instantiations`), the
                   nvidia-smi line, then the device line. The solution paths,
                   the c2 phases and the baseline launch none of them: no TPU
                   kernel lies on them.
 
-The Hodgkin-Huxley phases run in the order 10, 11, 15, 16, 9, 12, 13, 14,
-17: the two optimize phases first, so that the plain references that
+Phase 4 runs after phase 8, so that its float64 reference, which gets
+little of the host beside the build, is ready. The Hodgkin-Huxley phases
+run in the order 10, 11, 15, 16, 9, 12, 13, 14, 17: the two optimize phases first, so that the plain references that
 phases 9 and 13 read (host CPU work) are ready when those run; the erk
-phases 18-22 after them.
+phases 18-22 and the team phases 22a-22f after them.
 The build phase reports each instantiation's registers, spills and ptxas
 time. Every phase line after the first names the card and its power limit
 (`card`). Files too long for the output (the ptxas report, the synthesized
@@ -426,7 +475,7 @@ GRAD_LANES = 256
 GRAD_RTOL_F64 = 1e-8
 GRAD_P99_F32 = 5e-3
 BENCH_GRAD_STEPS = 400  # the bench rig's horizon in grad parity (600 before the mesh phases)
-PLAIN_TIMING_STEPS = 200  # the plain versions are timed at this cut horizon
+PLAIN_TIMING_STEPS = 100  # the plain versions are timed at this cut horizon (200 before the team phases)
 HH_EXPERIMENT = "params/hodgkinhuxley1_r4"
 HH_DATA = ROOT / "ode_uncertainty_tpu_torch" / "data"
 HH_RIG_STEPS = 200  # horizon of the Kvaerno3 parity rigs
@@ -442,7 +491,7 @@ HH_GRID_CHECK = 8
 HH_PLAIN_TIMING_STEPS = 5
 # the n = 8 plain gradient's timing horizon: ~0.6 s a step on the card (16 s
 # for 20 steps, three timings), cut to make room for the later phases
-HH_N8_PLAIN_TIMING_STEPS = 2  # 3 before the mesh phases
+HH_N8_PLAIN_TIMING_STEPS = 1  # 3 before the mesh phases, 2 before the team phases
 HH_GNA_TRUE = 25.0  # the generating g_Na (models/hodgkin_huxley.py _SINGLE_DEFAULTS)
 HH_GRAD_LANES = 64
 HH_GRAD_P99_F32 = 1e-2  # the implicit gradient rtol of tests/test_pallas_ekf.py:319
@@ -478,7 +527,7 @@ HH_FULL_GRAD_RIG_STEPS = 60
 # width (100 restarts, 4 stages, 10^4 steps, 7 rows, float32, the real
 # observations) is not cut.
 HH_FULL_LBFGS_MAXITER = 10
-HH_FULL_TIMING_REPS = 2  # CUDA-event timings of the n = 8 gradient (about a second each; 3 before PR 15)
+HH_FULL_TIMING_REPS = 1  # CUDA-event timings of the n = 8 gradient (about a second each; 3, then 2 before the mesh and team phases)
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth, non-tensor float32 and float64 FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -496,7 +545,9 @@ def emit(obj) -> None:
 PTXAS_MODELS = {"LotkaVolterra": "lotka_volterra", "Lorenz": "lorenz", "VanDerPol": "van_der_pol",
                 "Pendulum": "pendulum", "Logistic": "logistic", "Exponential": "exponential",
                 "HodgkinHuxley": "hodgkin_huxley"}
-PTXAS_TABLEAUS = {"HeunEuler": "heun_euler", "Bs32": "bs32", "Rkf45": "rkf45", "Dopri65": "dopri65"}
+PTXAS_TABLEAUS = {"HeunEuler": "heun_euler", "Bs32": "bs32", "Rkf45": "rkf45", "Dopri65": "dopri65",
+                  "Kvaerno3": "kvaerno3"}
+TILE_N = {"lotka_volterra": 2, "lorenz": 3, "van_der_pol": 2, "pendulum": 2, "logistic": 1, "exponential": 1}
 
 
 def ptxas_report(log: str) -> list:
@@ -510,11 +561,13 @@ def ptxas_report(log: str) -> list:
             # the template's class arguments, length-prefixed in the mangled name
             names = [rest[m.end():m.end() + int(m.group(1))] for m in re.finditer(r"NS_(\d+)", rest)]
             model = next(PTXAS_MODELS[x] for x in names if x in PTXAS_MODELS)
-            if team:  # nll_*_team_kernel<real, HodgkinHuxley<n>>: L = 1
-                n, obs, tableau = re.search(r"HodgkinHuxleyILi(\d+)E", rest).group(1), 1, "kvaerno3"
+            tableau = next(PTXAS_TABLEAUS[x] for x in names if x in PTXAS_TABLEAUS)
+            if team:  # nll_*_team_kernel<real, Model, L, Tab>, Model HodgkinHuxley<n> or a tile model
+                hh = re.search(r"HodgkinHuxleyILi(\d+)E", rest)
+                n = int(hh.group(1)) if hh else TILE_N[model]
+                obs = re.search(r"Li(\d+)E", rest[hh.end():] if hh else rest).group(1)
             else:
                 n, obs = re.match(r"Li(\d+)ELi(\d+)E", rest).group(1, 2)
-                tableau = next(PTXAS_TABLEAUS[x] for x in names if x in PTXAS_TABLEAUS)
             out.append({"kernel": kernel, "model": model, "tableau": tableau, "n": int(n), "L": int(obs),
                         "design": "team per lane" if team else "thread per lane",
                         "dtype": "float32" if real == "f" else "float64"})
@@ -942,7 +995,7 @@ def hh_config(experiment: str = HH_EXPERIMENT, data: str = "hodgkinhuxley_r4.npz
 
 
 def hh_kernel(cfg, dtype, t0: float, steps: int, x0=None, data: str = "hodgkinhuxley_r4.npz",
-              spec=None, optimized=None, accumulate_time: bool = False):
+              spec=None, optimized=None, accumulate_time: bool = False, device: str = None):
     """The nll_fwd wrapper of an HH experiment's model, Kvaerno3 solver and
     filter on a rig of ``steps`` steps from ``t0`` (at the rest state
     unless ``x0`` [1, n] is given), V observed after every step: the
@@ -950,20 +1003,21 @@ def hh_kernel(cfg, dtype, t0: float, steps: int, x0=None, data: str = "hodgkinhu
     the experiment's, or ``optimized`` (names), or those of ``spec``."""
     model, solver, ekf = cfg["ode_builder"], cfg["solver_builder"], cfg["filter_builder"]
     n, h = model.state_size, solver.h
+    device = DEVICE if device is None else device
     if x0 is None:
         x0 = model.build_initial_value(torch.tensor([[-70.0]], dtype=torch.float64), model.params)
-    x0 = torch.as_tensor(x0, dtype=dtype, device=DEVICE)
+    x0 = torch.as_tensor(x0, dtype=dtype, device=device)
     obs_file = np.load(HH_DATA / data)
     i0 = int(round(t0 / h))
     rows = slice(i0 + 1, i0 + steps + 1)
     obs = make_obs_model(np.asarray(parse_literal(cfg["measurement_matrix"]), float),
                          obs_file["t"][rows], obs_file["x"][rows].reshape(steps, -1),
-                         cfg["obs_noise_var"], t0, h, steps, dtype=dtype, device=DEVICE)
+                         cfg["obs_noise_var"], t0, h, steps, dtype=dtype, device=device)
     if spec is None:
         opt = cfg["params_optimized"] if optimized is None else {k: k in optimized for k in model.params}
-        spec = make_param_spec(model.params, cfg["params_range"], opt, dtype=dtype, device=DEVICE)
-    state0 = ekf.init_state(t0, x0, const_diag(n, 1e-12, dtype, DEVICE), obs.obs_dim)
-    q = torch.eye(n, dtype=dtype, device=DEVICE)
+        spec = make_param_spec(model.params, cfg["params_range"], opt, dtype=dtype, device=device)
+    state0 = ekf.init_state(t0, x0, const_diag(n, 1e-12, dtype, device), obs.obs_dim)
+    q = torch.eye(n, dtype=dtype, device=device)
     return nll_kernel.make_nll_cuda(model, solver, ekf, spec, obs, state0, steps, q,
                                     accumulate_time=accumulate_time)
 
@@ -1112,7 +1166,8 @@ PLAIN_REF_DIR = OUT / "plain_refs"
 LV_REF_KEYS = ("parity_lv2", "parity_bench", "grad_lv2", "grad_bench")
 PLAIN_REF_GROUPS = (
     ("parity_bench", "grad_bench"),
-    ("parity_lv2", "grad_lv2"),
+    ("parity_lv2",),
+    ("grad_lv2",),  # a process of its own: 45 s of one core, read by grad_parity right after the build
     ("spike_x0", "parity_onset_r4", "parity_onset_full", "parity_box_full", "parity_spike_r4"),
     ("grad_onset_r4", "grad_spike_r4", "grad_onset_r1"),
     ("grad_onset_full", "grad_box_full"),
@@ -1180,6 +1235,9 @@ def plain_references(out_dir: Path, keys: list) -> None:
     for key in keys:
         if key.startswith(("erk-", "erkfull-")) or key == "pendulum_lanes":
             save_atomically(erk_plain_reference(key), out_dir / f"{key}.pt")
+            continue
+        if key.startswith("team-") or key in TEAM_LANES:
+            save_atomically(team_plain_reference(key), out_dir / f"{key}.pt")
             continue
         if key in LV_REF_KEYS:
             cfg = None
@@ -1280,11 +1338,11 @@ ERK_REF_GROUPS = 3  # processes of the erk plain references
 
 
 def erk_chains() -> list:
-    """(model, tableau, L) of the new explicit-step instantiations: every
-    tableau on every tile model at L = 1 and L = n, but Lotka-Volterra's
-    RKF45 (row 1's own, in nll_fwd.cu / nll_bwd.cu)."""
+    """(model, tableau, L) of the explicit-step instantiations on a thread
+    per lane: every tableau on every tile model at every L in 1..n, but
+    Lotka-Volterra's RKF45 (row 1's own, in nll_fwd.cu / nll_bwd.cu)."""
     return [(m, tab, L) for m, (_, x0) in ERK_MODELS.items() for tab in ERK_TABLEAUS
-            if (m, tab) != ("lotka_volterra", "rkf45") for L in sorted({1, int(np.size(x0))})]
+            if (m, tab) != ("lotka_volterra", "rkf45") for L in range(1, int(np.size(x0)) + 1)]
 
 
 @functools.cache
@@ -1655,6 +1713,523 @@ def erk_phases(plain_procs: dict, ptxas: list) -> dict:
 PLAIN_REF_GROUPS = PLAIN_REF_GROUPS + erk_ref_groups()
 
 
+# ---- the team chains of rows 2 and 4 on the tile models, and of rows 1 and 3 on HH ----
+# chip label -> (experiment, committed observations) of each single-compartment HH variant
+TEAM_HH = {"hh4": ("params/hodgkinhuxley1_r4", "hodgkinhuxley_r4.npz"),
+           "hh7": ("params/hodgkinhuxley6_r1", "hodgkinhuxley_r1.npz"),
+           "hh8": ("params/hodgkinhuxley7_full", "hodgkinhuxley_full.npz")}
+TEAM_HH_MODELS = {"hh4": "hodgkin_huxley_reduced-4", "hh7": "hodgkin_huxley_reduced-1",
+                  "hh8": "hodgkin_huxley_full"}
+TEAM_HH_T0 = 9.98  # the HH rigs start two steps before the stimulus edge at t = 10
+TEAM_TILE_STEPS, TEAM_HH_STEPS = 50, 6  # team_parity's horizons (an observation every ERK_PARITY_EVERY / every step)
+# team_timing's HH horizons from rest: the experiment's 10^4 steps on reduced-4; 2,000 on reduced-1 and full,
+# whose explicit chains from rest turn non-finite near step 2,420 (the reference's own solve blows up there)
+TEAM_HH_TIMING_STEPS = {"hh4": 10_000, "hh7": 2_000, "hh8": 2_000}
+TEAM_HH_TIMING_REPS = 3  # a launch is 30-360 ms
+TEAM_REF_GROUPS = 4  # processes of the team plain references
+LVKV3_LANES = 4  # float64 lanes of lv_kv3_optimize's rig held to the plain version at full horizon
+# float64 lanes of hh_rkf45's rig held to the plain version: HH_RKF45_LANES_STEPS steps from t0 across the
+# stimulus onset at t = 10, times by the entry points' running sum (the plain version costs ~0.7 s a step)
+HH_RKF45_LANES, HH_RKF45_LANES_T0, HH_RKF45_LANES_STEPS = 4, 9.0, 200
+HH_RKF45_LBFGS_MAXITER = 10  # hh_rkf45_optimize's depth (the experiment's: 200)
+SOLVER_CLASS = "ode_uncertainty_tpu.solvers.{}"
+
+
+def team_chains() -> list:
+    """(model, tableau, L) of the chains on a team of threads per lane
+    beside HH x Kvaerno3: Kvaerno3 on every tile model at every L in 1..n,
+    and every explicit tableau on each single-compartment HH variant at
+    L = 1."""
+    return ([(m, "kvaerno3", L) for m, (_, x0) in ERK_MODELS.items() for L in range(1, int(np.size(x0)) + 1)]
+            + [(hh, tab, 1) for hh in TEAM_HH for tab in ERK_TABLEAUS])
+
+
+def team_kernel(model: str, tableau: str, L: int, dtype, steps: int, device=None, t0: float = None):
+    """The kernels' wrapper of a team chain: a tile model on erk_kernel's rig
+    (an observation every ERK_PARITY_EVERY steps), an HH variant on its
+    experiment's rig (hh_kernel: the experiment's optimized parameters, V
+    observed after every step) from ``t0`` (TEAM_HH_T0) under ``tableau``."""
+    if model not in TEAM_HH:
+        return erk_kernel(model, tableau, L, dtype, steps, ERK_PARITY_EVERY, device)
+    experiment, data = TEAM_HH[model]
+    cfg = hh_config(experiment, data)
+    cfg["solver_builder"] = getattr(solvers, tableau)(cfg["solver_builder"].h)
+    return hh_kernel(cfg, dtype, TEAM_HH_T0 if t0 is None else t0, steps, data=data, device=device)
+
+
+def team_timing_kernel(model: str, tableau: str, L: int, dtype, device=None):
+    """team_timing's rig: erk_timing's (ERK_TIMING_STEPS, a correct a step)
+    on a tile model, TEAM_HH_TIMING_STEPS from rest on HH."""
+    if model in TEAM_HH:
+        return team_kernel(model, tableau, L, dtype, TEAM_HH_TIMING_STEPS[model], device, t0=0.0)
+    return erk_kernel(model, tableau, L, dtype, ERK_TIMING_STEPS, 1, device)
+
+
+def lv_kv3_config(out_path: Path, float64: bool = False, device: str = None):
+    """params/lotkavolterra2 with ``--set solver_builder`` Kvaerno3 at its
+    h = 0.01, on the synthesized observations."""
+    raw = load_experiment("params/lotkavolterra2")
+    raw["solver_builder"] = {"class_path": SOLVER_CLASS.format("Kvaerno3"),
+                             "init_args": {"step_size": raw["solver_builder"]["init_args"]["step_size"]}}
+    return build_config(raw, {"y_path": str(LV2_OBS), "output": str(out_path),
+                              "device": DEVICE if device is None else device, "float64": float64})
+
+
+def hh_rkf45_config(out_path: Path, device: str = None):
+    """params/hodgkinhuxley1_r4 with ``--set solver_builder`` RKF45 at its
+    h = 0.01, on the committed npz observations."""
+    raw = load_experiment(HH_EXPERIMENT)
+    raw["solver_builder"] = {"class_path": SOLVER_CLASS.format("RKF45"),
+                             "init_args": {"step_size": raw["solver_builder"]["init_args"]["step_size"]}}
+    return build_config(raw, {"y_path": str(HH_DATA / "hodgkinhuxley_r4.npz"), "output": str(out_path),
+                              "device": DEVICE if device is None else device})
+
+
+def lv_kv3_lanes(device: str = None) -> tuple:
+    """lv_kv3_optimize's float64 check: the entry points' wrapper on the
+    experiment's rig, LVKV3_LANES points, and their gamma^1/2: the first
+    stage's for the first half, the last stage's for the rest."""
+    cfg = lv_kv3_config(OUT / "unused.npz", float64=True, device=device)
+    kern = rpe.batched_nll(build_rig(cfg, torch.float64, torch.device(cfg["device"])), cfg, grad=True)[0]
+    p = np.random.default_rng(SEED + 7).uniform(size=(LVKV3_LANES, 2))
+    gammas = gammas_of(cfg, torch.float64)
+    half = LVKV3_LANES // 2
+    return kern, p, np.repeat([float(torch.sqrt(gammas[0])), float(torch.sqrt(gammas[-1]))], [half, half])
+
+
+def hh_rkf45_lanes(device: str = None) -> tuple:
+    """hh_rkf45_optimize's float64 check: the experiment's rig under RKF45
+    over HH_RKF45_LANES_STEPS steps from HH_RKF45_LANES_T0, with the entry
+    points' running-sum time rule, HH_RKF45_LANES points, and their
+    gamma^1/2: the first stage's for the first half, the last stage's for
+    the rest."""
+    cfg = hh_rkf45_config(OUT / "unused.npz", device=device)
+    kern = hh_kernel(cfg, torch.float64, HH_RKF45_LANES_T0, HH_RKF45_LANES_STEPS, accumulate_time=True,
+                     device=device)
+    p = np.random.default_rng(SEED + 8).uniform(size=(HH_RKF45_LANES, kern.spec.num_opt))
+    gammas = gammas_of(cfg, torch.float64)
+    half = HH_RKF45_LANES // 2
+    return kern, p, np.repeat([float(torch.sqrt(gammas[0])), float(torch.sqrt(gammas[-1]))], [half, half])
+
+
+# the float64 lane checks of the two paths' phases: plain-reference key -> its rig
+TEAM_LANES = {"lvkv3_lanes": lv_kv3_lanes, "hhrkf45_lanes": hh_rkf45_lanes}
+
+
+def team_ref_keys() -> list:
+    """The plain references of the team phases: team_parity's (``team-*``,
+    with the timing rigs' operation counts) and the paths' lanes (TEAM_LANES)."""
+    return [erk_key("team", *c) for c in team_chains()] + list(TEAM_LANES)
+
+
+def team_plain_reference(key: str) -> dict:
+    """One team plain reference on the host's CPU, float64."""
+    if key in TEAM_LANES:
+        kern, p, gs = TEAM_LANES[key]("cpu")
+        phys, gs = kern.physical(torch.as_tensor(p)), torch.as_tensor(gs)
+        (vals, (dphys, dgamma)), ms = cpu_time(lambda: (
+            nll_kernel.nll_plain(kern.cm, phys, kern.ys, gs),
+            nll_kernel.nll_grad_plain(kern.cm, phys, kern.ys, gs, torch.ones(len(p), dtype=torch.float64))))
+        return {"plain64": vals, "grad64": torch.cat([dphys, dgamma[None]]), "ms": ms}
+    _, model, tab, L = key.split("-")
+    L = int(L)
+    steps = TEAM_HH_STEPS if model in TEAM_HH else TEAM_TILE_STEPS
+    kern = team_kernel(model, tab, L, torch.float64, steps, "cpu")
+    groups, cot = erk_parity_inputs(kern.spec.num_opt)
+    phys = kern.physical(torch.as_tensor(np.concatenate([p for p, _ in groups])))
+    gs = torch.as_tensor(np.concatenate([np.full(len(p), g) for p, g in groups]))
+    vals, ms = cpu_time(lambda: nll_kernel.nll_plain(kern.cm, phys, kern.ys, gs))
+    (dphys, dgamma), grad_ms = cpu_time(lambda: nll_kernel.nll_grad_plain(kern.cm, phys, kern.ys, gs,
+                                                                          torch.as_tensor(cot)))
+    timing = team_timing_kernel(model, tab, L, torch.float64, "cpu")
+    return {"plain64": vals, "grad64": torch.cat([dphys, dgamma[None]]), "ms": ms, "grad_ms": grad_ms,
+            "lanes": phys.shape[1], "steps": steps,
+            "fwd_ops": ops_per_lane(timing.cm), "grad_ops": grad_ops_per_lane(timing.cm)}
+
+
+def team_ref_groups() -> tuple:
+    """team_ref_keys dealt over TEAM_REF_GROUPS processes, the dearest first
+    (the HH plain versions' JVPs run column by column: n = 7 and 8 under
+    Dormand-Prince cost seconds a step)."""
+    def cost(k):
+        if k in TEAM_LANES:
+            return {"lvkv3_lanes": 90, "hhrkf45_lanes": 150}[k]
+        _, model, tab, _ = k.split("-")
+        size = {"hh4": 3, "hh7": 10, "hh8": 12}.get(model, 1)
+        return size * {"heun_euler": 1, "bs32": 2, "rkf45": 4, "dopri65": 6, "kvaerno3": 4}[tab]
+    groups = [[] for _ in range(TEAM_REF_GROUPS)]
+    loads = [0] * TEAM_REF_GROUPS
+    for k in sorted(team_ref_keys(), key=cost, reverse=True):
+        i = loads.index(min(loads))
+        groups[i].append(k)
+        loads[i] += cost(k)
+    return tuple(tuple(g) for g in groups)
+
+
+def steps_of_chain(cm) -> int:
+    """The solver steps of a chain: first + 1, then n_obs - 1 intervals of d."""
+    return cm.first + 1 + (cm.n_obs - 1) * cm.d
+
+
+def team_entry(kernel: str, model: str, tableau: str, L: int, dtype) -> dict:
+    """The kernels line's entry of one team instantiation (without its numbers)."""
+    dt = str(dtype).removeprefix("torch.")
+    tag = "f32" if dt == "float32" else "f64"
+    if model in TEAM_HH:
+        step = "dopri65" if kernel == "nll_bwd" and tableau == "dopri65" else "erk"
+        source = f"{kernel}_{step}_{model}_{tag}.cu"
+        name = TEAM_HH_MODELS[model]
+    else:
+        source = f"{kernel}_kv3_{ {'lotka_volterra': 'lv', 'van_der_pol': 'vdp'}.get(model, model)}_{tag}.cu"
+        name = model
+    step_ref = " (Kvaerno3 step, :291-364)" if tableau == "kvaerno3" else " (ERK step, :171)"
+    return {"name": f"{kernel} {name}/{tableau} L={L} {dt}", "route": "cuda",
+            "source": f"ode_uncertainty_tpu_torch/csrc/{source}",
+            "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:" + ("722" if kernel == "nll_fwd" else "851") + step_ref,
+            "model": name, "tableau": tableau, "L": L, "dtype": dt, "design": "team per lane", "library_ms": None}
+
+
+def optimize_recording_starts(cfg) -> tuple:
+    """optimize(cfg) with the normalized points each (chunk x stage) unit
+    starts from recorded by stage: (result, {gamma: [points]}, launches,
+    launches by chain, wall seconds, the kernels' device seconds)."""
+    starts: dict = {}
+    stage_grid = rpe.run_stage_grid
+
+    def recording_grid(out, p0, gammas, stage_fn, *args, **kwargs):
+        def recorded(p_norm, gamma, unit_key=None):
+            starts.setdefault(float(gamma), []).append(p_norm.detach().clone())
+            return stage_fn(p_norm, gamma, unit_key=unit_key)
+        return stage_grid(out, p0, gammas, recorded, *args, **kwargs)
+
+    rpe.run_stage_grid = recording_grid
+    try:
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        with LaunchTimer() as timer:
+            res = optimize(cfg)
+        wall = time.perf_counter() - t0
+        counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+    finally:
+        rpe.run_stage_grid = stage_grid
+    return res, starts, counts, by_chain, wall, timer.seconds()
+
+
+def stage_descent(kern, res, starts) -> list:
+    """Per stage: the best NLL of the points the stage started from (by the
+    wrapper ``kern``, float32, at the stage's gamma^1/2) and the best at its
+    end; raises unless every stage descends."""
+    final_all = np.asarray(res["nll_optims"], np.float64)
+    descent = []
+    for stage, gam in enumerate(res["gammas"].tolist()):
+        gs = float(torch.sqrt(torch.as_tensor(gam, dtype=torch.float32)))
+        p_start = torch.cat(starts[float(np.float32(gam))]).to(device=DEVICE, dtype=torch.float32)
+        start = kern.launch(kern.physical(p_start), gs).double().cpu().numpy()
+        best_start = float(np.min(np.where(np.isfinite(start), start, np.inf)))
+        col = final_all[:, stage]
+        best_final = float(np.min(np.where(np.isfinite(col), col, np.inf)))
+        descent.append({"stage": stage, "gamma": gam, "best_start_nll": best_start, "best_final_nll": best_final,
+                        "finite_start": int(np.isfinite(start).sum()), "finite_final": int(np.isfinite(col).sum())})
+        if not best_final <= best_start:
+            raise AssertionError(f"optimize did not descend at stage {stage}: {descent[-1]}")
+    return descent
+
+
+# the instantiations of the two paths (launches_by_chain keys: nll_fwd, nll_bwd)
+LV_KV3_CHAIN = tuple((k, "lotka_volterra", "kvaerno3", 2, 1, "float32") for k in ("nll_fwd", "nll_bwd"))
+HH_RKF45_CHAIN = tuple((k, "hodgkin_huxley_reduced-4", "rkf45", 4, 1, "float32") for k in ("nll_fwd", "nll_bwd"))
+
+
+def team_limits(tab: str) -> tuple:
+    """team_parity's float32 p99 limits (values, gradients): implicit or explicit."""
+    return (HH_P99_F32, HH_GRAD_P99_F32) if tab == "kvaerno3" else (P99_F32, GRAD_P99_F32)
+
+
+def team_parity_phase(plain_procs: dict, entries: dict) -> None:
+    """Every team instantiation against its float64 plain version (team_ref_keys)."""
+    with Phase("team_parity") as ph:
+        worst = {}
+        for model, tab, L in team_chains():
+            ref = plain_ref(plain_procs, erk_key("team", model, tab, L))
+            steps = TEAM_HH_STEPS if model in TEAM_HH else TEAM_TILE_STEPS
+            for dtype in (torch.float64, torch.float32):
+                kern = team_kernel(model, tab, L, dtype, steps)
+                groups, cot = erk_parity_inputs(kern.spec.num_opt)
+                cot = torch.as_tensor(cot, dtype=dtype, device=DEVICE)
+                vals, grads, start = [], [], 0
+                for p, gs in groups:
+                    phys = kern.physical(torch.as_tensor(p, dtype=dtype, device=DEVICE))
+                    vals.append(kern.launch(phys, gs))
+                    dphys, dgamma = kern.grad.launch(phys, gs, cot[start:start + len(p)], True)
+                    grads.append(torch.cat([dphys, dgamma[None]]))
+                    start += len(p)
+                torch.cuda.synchronize()
+                exact = dtype == torch.float64
+                dt = str(dtype)[6:]
+                val_limit, grad_limit = team_limits(tab)
+                val = compare(torch.cat(vals), ref["plain64"], exact, val_limit)
+                grad = compare_grads(torch.cat(grads, dim=1), ref["grad64"], exact, grad_limit)
+                for kernel, stat in (("nll_fwd", val), ("nll_bwd", grad)):
+                    entries[(kernel, kern.cm.model_name, tab, L, dt)]["max_abs_err"] = stat["max_abs_err"]
+                    key = (kernel, dt, "implicit" if tab == "kvaerno3" else "explicit")
+                    err = stat["max_rel_err" if exact else "p99_lane_err"]
+                    if err >= worst.get(key, (-1.0,))[0]:
+                        worst[key] = (err, f"{model} {tab} L={L}")
+        ph.info.update(chains=len(team_chains()), instantiations=len(entries),
+                       steps={"tile": TEAM_TILE_STEPS, "hh": TEAM_HH_STEPS}, hh_t0=TEAM_HH_T0,
+                       every={"tile": ERK_PARITY_EVERY, "hh": 1}, batches=list(ERK_BATCHES),
+                       gammas_sqrt=list(ERK_GAMMAS),
+                       worst={" ".join(k): {"err": e, "chain": c} for k, (e, c) in worst.items()},
+                       limits={"f64": [RTOL_F64, GRAD_RTOL_F64], "f32_p99_implicit": list(team_limits("kvaerno3")),
+                               "f32_p99_explicit": list(team_limits("rkf45"))},
+                       plain_references="host CPU, processes of their own (TEAM_REF_GROUPS)")
+
+
+
+def f64_lanes_vs_plain(plain_procs: dict, key: str) -> dict:
+    """The float64 lanes of TEAM_LANES[key] on the card, values and every
+    row's gradient, against their plain reference (1e-9, 1e-8)."""
+    k64, p, gs = TEAM_LANES[key]()
+    ref = plain_ref(plain_procs, key)
+    vals, grads = [], []
+    for g in dict.fromkeys(gs.tolist()):  # the halves in order
+        phys = k64.physical(torch.as_tensor(p[gs == g], device=DEVICE))
+        vals.append(k64.launch(phys, g))
+        dphys, dgamma = k64.grad.launch(phys, g, torch.ones(phys.shape[1], dtype=torch.float64, device=DEVICE), True)
+        grads.append(torch.cat([dphys, dgamma[None]]))
+    torch.cuda.synchronize()
+    return {"gamma_sqrt": gs.tolist(), "steps": steps_of_chain(k64.cm), "plain_cpu_ms": ref["ms"],
+            "value": compare(torch.cat(vals), ref["plain64"], True),
+            "gradient": compare_grads(torch.cat(grads, dim=1), ref["grad64"], True)}
+
+
+def lv_kv3_phases(plain_procs: dict) -> dict:
+    """lv_kv3_optimize and lv_kv3_evaluate; {phase: (launches, by chain)}."""
+    paths = {}
+    lv_fwd = LV_KV3_CHAIN[0]
+    opt_path = OUT / "lv_kv3_optimize.npz"
+    for stale in OUT.glob("lv_kv3_optimize.npz*"):
+        stale.unlink()
+    with Phase("lv_kv3_optimize") as ph:
+        cfg = lv_kv3_config(opt_path)
+        nll_kernel.reset_launches()
+        t0 = time.perf_counter()
+        with LaunchTimer() as timer:
+            res = optimize(cfg)
+        wall = time.perf_counter() - t0
+        counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+        kernel_s = timer.seconds()
+        final = np.asarray(res["nll_optims"][:, -1], np.float64)
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 2):
+            raise AssertionError(f"LV Kvaerno3 optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if (set(by_chain) != set(LV_KV3_CHAIN) or min(by_chain.values()) <= 0
+                or res["route"] != "nll_fwd + nll_bwd kernels"):
+            raise AssertionError(f"LV Kvaerno3 optimize did not run its two instantiations: {by_chain}, {res['route']}")
+        finite = np.isfinite(final)
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 LV Kvaerno3 restarts end finite")
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        kern = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg, grad=True)[0]
+        truth = float(kern.launch(kern.physical(kern.spec.defaults_norm_opt()[None]), 0.0)[0])
+        if not final[best] <= truth + 1e-3 * abs(truth):
+            raise AssertionError(f"best final LV Kvaerno3 NLL {final[best]} above the generating parameters' {truth}")
+        generating = kern.spec.defaults_flat[kern.spec.opt_indices].cpu().numpy()
+        optimum = res["params_optims"][best, -1]
+        rel = np.abs(optimum - generating) / generating
+        if rel.max() > 0.10:
+            raise AssertionError(f"best LV Kvaerno3 optimum {optimum} not within 10% of {generating}")
+        # a few lanes in float64 against the plain version on the host's CPU (full horizon)
+        lanes = f64_lanes_vs_plain(plain_procs, "lvkv3_lanes")
+        ph.info.update(launches=counts, route=res["route"], optimize_wall_s=wall, restarts=100, stages=4,
+                       steps=steps_of_chain(kern.cm), lbfgs_maxiter=cfg["lbfgs_maxiter"],
+                       finite_final=int(finite.sum()), best_final_nll=float(final[best]),
+                       nll_at_generating_params=truth, best_optimum=optimum.tolist(),
+                       generating=generating.tolist(), optimum_rel_err=rel.tolist(), units=res["units"],
+                       kernel_seconds=kernel_s, kernel_share=sum(kernel_s.values()) / wall,
+                       device_idle_share_at_most=1.0 - sum(kernel_s.values()) / wall,
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       f64_lanes_vs_plain=lanes, output=str(opt_path.relative_to(ROOT)))
+    paths["lv_kv3_optimize"] = (counts, by_chain)
+
+    eval_path = OUT / "lv_kv3_evaluate.npz"
+    eval_path.unlink(missing_ok=True)
+    with Phase("lv_kv3_evaluate") as ph:
+        cfg = lv_kv3_config(eval_path)
+        nll_kernel.reset_launches()
+        res = evaluate(cfg)
+        counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+        vals = res["nll_evals"]
+        if vals.shape != (4, 400) or not np.isfinite(vals).all():
+            raise AssertionError(f"LV Kvaerno3 evaluate gave shape {vals.shape}, finite {np.isfinite(vals).all()}")
+        if set(by_chain) != {lv_fwd} or counts["nll_fwd"] <= 0 or res["route"] != "nll_fwd kernel":
+            raise AssertionError(f"LV Kvaerno3 evaluate did not run its instantiation: {by_chain}, {res['route']}")
+        # GRID_CHECK points of the grid equal a direct launch of the entry points' wrapper
+        grid_idx, _, grid_norm, _ = lv2_grid(cfg)
+        kd = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg)[0]
+        pts = torch.as_tensor(grid_norm, dtype=torch.float32, device=DEVICE)
+        direct = torch.stack([kd.launch(kd.physical(pts), float(torch.sqrt(gam)))
+                              for gam in gammas_of(cfg, torch.float32)]).cpu().numpy()
+        if not np.array_equal(vals[:, grid_idx], direct):
+            raise AssertionError("LV Kvaerno3 evaluate differs from a direct launch")
+        ph.info.update(launches=counts, route=res["route"], shape=list(vals.shape), evaluate_wall_s=res["wall_s"],
+                       grid_points_equal_direct_launch=len(grid_idx), nll_min=float(vals.min()),
+                       nll_max=float(vals.max()), output=str(eval_path.relative_to(ROOT)))
+    paths["lv_kv3_evaluate"] = (counts, by_chain)
+
+    return paths
+
+
+def hh_rkf45_phases(plain_procs: dict) -> dict:
+    """hh_rkf45_evaluate and hh_rkf45_optimize; {phase: (launches, by chain)}."""
+    paths = {}
+    hh_fwd = HH_RKF45_CHAIN[0]
+    hh_eval_path = OUT / "hh_rkf45_evaluate.npz"
+    hh_eval_path.unlink(missing_ok=True)
+    with Phase("hh_rkf45_evaluate") as ph:
+        cfg = hh_rkf45_config(hh_eval_path)
+        nll_kernel.reset_launches()
+        res = evaluate(cfg)
+        counts, by_chain = dict(nll_kernel.launches), dict(nll_kernel.launches_by_chain)
+        vals = res["nll_evals"]
+        # a point of the grid may diverge under RKF45 (the JAX CLI's float32
+        # run on the CPU has one non-finite point at stages 0 and 2)
+        finite = np.isfinite(vals)
+        if vals.shape != (4, 100) or not finite[-1].any():
+            raise AssertionError(f"HH RKF45 evaluate gave shape {vals.shape}, finite {finite.sum(axis=1)}")
+        if by_chain != {hh_fwd: 4} or res["route"] != "nll_fwd kernel":
+            raise AssertionError(f"HH RKF45 evaluate did not launch its instantiation 4 times: {by_chain}")
+        g_na = res["param_evals"][:, 0]
+        best = float(g_na[int(np.argmin(np.where(finite[-1], vals[-1], np.inf)))])
+        if abs(best - HH_GNA_TRUE) > 0.10 * HH_GNA_TRUE:
+            raise AssertionError(f"HH RKF45 evaluate: last stage's argmin g_Na {best} not within 10% of {HH_GNA_TRUE}")
+        kd = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg)[0]
+        grid = torch.as_tensor(np.linspace(0.0, 1.0, vals.shape[1])[:, None], dtype=torch.float32, device=DEVICE)
+        direct = torch.stack([kd.launch(kd.physical(grid), float(torch.sqrt(gam)))
+                              for gam in gammas_of(cfg, torch.float32)]).cpu().numpy()
+        if not np.array_equal(vals, direct, equal_nan=True):
+            raise AssertionError("HH RKF45 evaluate differs from a direct launch")
+        ph.info.update(launches=counts, route=res["route"], shape=list(vals.shape), steps=kd.cm.n_obs,
+                       finite_per_stage=finite.sum(axis=1).tolist(), evaluate_wall_s=res["wall_s"],
+                       points_equal_direct_launch=True, argmin_g_na_last_stage=best,
+                       generating_g_na=HH_GNA_TRUE, nll_min_per_stage=np.nanmin(vals, axis=1).tolist(),
+                       output=str(hh_eval_path.relative_to(ROOT)))
+    paths["hh_rkf45_evaluate"] = (counts, by_chain)
+
+    hh_opt_path = OUT / "hh_rkf45_optimize.npz"
+    for stale in OUT.glob("hh_rkf45_optimize.npz*"):
+        stale.unlink()
+    with Phase("hh_rkf45_optimize") as ph:
+        cfg = hh_rkf45_config(hh_opt_path)
+        cfg["lbfgs_maxiter"] = HH_RKF45_LBFGS_MAXITER
+        res, starts, counts, by_chain, wall, kernel_s = optimize_recording_starts(cfg)
+        if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, 1):
+            raise AssertionError(f"HH RKF45 optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
+        if (set(by_chain) != set(HH_RKF45_CHAIN) or min(by_chain.values()) <= 0
+                or res["route"] != "nll_fwd + nll_bwd kernels"):
+            raise AssertionError(f"HH RKF45 optimize did not run its two instantiations: {by_chain}, {res['route']}")
+        final = np.asarray(res["nll_optims"][:, -1], np.float64)
+        finite = np.isfinite(final)
+        if finite.mean() < 0.95:
+            raise AssertionError(f"only {finite.sum()} of 100 HH RKF45 restarts end finite")
+        kf = rpe.batched_nll(build_rig(cfg, torch.float32, torch.device(DEVICE)), cfg, grad=True)[0]
+        descent = stage_descent(kf, res, starts)
+        best = int(np.argmin(np.where(finite, final, np.inf)))
+        # a few lanes in float64 against the plain version on the host's CPU, across the onset
+        lanes = f64_lanes_vs_plain(plain_procs, "hhrkf45_lanes")
+        ph.info.update(launches=counts, route=res["route"], optimize_wall_s=wall, restarts=100, stages=4,
+                       steps=kf.cm.n_obs, lbfgs_maxiter=HH_RKF45_LBFGS_MAXITER, finite_final=int(finite.sum()),
+                       descent=descent, best_final_nll=float(final[best]),
+                       f64_lanes_vs_plain={**lanes, "t0": HH_RKF45_LANES_T0},
+                       best_g_na_reported=float(res["params_optims"][best, -1, 0]), units=res["units"],
+                       kernel_seconds=kernel_s, kernel_share=sum(kernel_s.values()) / wall,
+                       device_idle_share_at_most=1.0 - sum(kernel_s.values()) / wall,
+                       dispatches_per_stage=[u["dispatches"] for u in res["units"]],
+                       iters_median_per_stage=np.median(res["num_lbfgs_iters"], axis=0).tolist(),
+                       output=str(hh_opt_path.relative_to(ROOT)))
+    paths["hh_rkf45_optimize"] = (counts, by_chain)
+
+    return paths
+
+
+def team_timing_phase(plain_procs: dict, entries: dict) -> None:
+    """Every team instantiation timed at B = 256 (team_timing_kernel's rigs)."""
+    with Phase("team_timing") as ph:
+        for model, tab, L in team_chains():
+            ref = plain_ref(plain_procs, erk_key("team", model, tab, L))
+            hh = model in TEAM_HH
+            for dtype in (torch.float32, torch.float64):
+                dt = str(dtype)[6:]
+                kern = team_timing_kernel(model, tab, L, dtype)
+                p = torch.as_tensor(np.random.default_rng(SEED).uniform(size=(ERK_TIMING_BATCH, kern.spec.num_opt)),
+                                    dtype=dtype, device=DEVICE)
+                phys, g = kern.physical(p), torch.ones(ERK_TIMING_BATCH, dtype=dtype, device=DEVICE)
+                rows = kern.opt_rows if hh else None  # HH: the experiment's optimized rows
+                fwd = lambda: kern.launch(phys, 0.1)
+                bwd = lambda: kern.grad.launch(phys, 0.1, g, False, rows)
+                # no warm-up launch: team_parity has loaded every instantiation; how many of the timed
+                # lanes end finite is recorded beside the time
+                finite = int(torch.isfinite(fwd()).sum())
+                for kernel, launch, plain_key, ops_key in (("nll_fwd", fwd, "ms", "fwd_ops"),
+                                                            ("nll_bwd", bwd, "grad_ms", "grad_ops")):
+                    ms = event_times(launch, TEAM_HH_TIMING_REPS if hh else ERK_TIMING_REPS)
+                    grad = kernel == "nll_bwd"
+                    # one reverse-mode sweep gives every row: its count bounds any direction list
+                    b_ms, b_by, _ = bound_ms(kern.cm, ERK_TIMING_BATCH, grad=grad, lane_ops=ref[ops_key])
+                    shape = f"B={ERK_TIMING_BATCH}, {steps_of_chain(kern.cm)} steps"
+                    if grad:
+                        shape += f", {len(rows)} rows" if hh else ", every row"
+                    entries[(kernel, kern.cm.model_name, tab, L, dt)].update(
+                        ms=float(np.median(ms)), plain_ms=ref[plain_key], timing_shape=shape,
+                        plain_shape=f"host CPU, float64, {ref['lanes']} lanes, {ref['steps']} steps (team_parity's rig)",
+                        bound_ms=b_ms, bound_by=b_by, timed_lanes_finite=finite)
+        ranges = {}
+        for e in entries.values():
+            k = f"{e['name'][:7]} {e['tableau'] == 'kvaerno3' and 'kvaerno3' or 'hh-erk'} {e['dtype']}"
+            lo, hi = ranges.get(k, (np.inf, -np.inf))
+            ranges[k] = (min(lo, e["ms"]), max(hi, e["ms"]))
+        path_entries = {k: entries[k[:3] + k[4:]] for k in LV_KV3_CHAIN + HH_RKF45_CHAIN}
+        ph.info.update(shape=(f"B={ERK_TIMING_BATCH}, gamma^1/2 = 0.1; tile models {ERK_TIMING_STEPS} steps, a correct "
+                              f"a step, nll_bwd every row without d/d gamma^1/2; HH {TEAM_HH_TIMING_STEPS} steps "
+                              "from rest, nll_bwd on the experiment's optimized rows"),
+                       timed_lanes_finite_min=min(e["timed_lanes_finite"] for e in entries.values()),
+                       reps={"tile": ERK_TIMING_REPS, "hh": TEAM_HH_TIMING_REPS}, library_call="none",
+                       ms_range=ranges,
+                       paths_instantiations={e["name"]: {f: e[f] for f in ("ms", "bound_ms", "plain_ms")}
+                                             for e in path_entries.values()},
+                       per_instantiation=str((OUT / "team_instantiations.json").relative_to(ROOT)))
+
+
+def team_phases(plain_procs: dict, ptxas: list) -> dict:
+    """team_parity, lv_kv3_optimize, lv_kv3_evaluate, hh_rkf45_evaluate,
+    hh_rkf45_optimize and team_timing; returns the entries of every team
+    instantiation for the kernels line and the launches of each path."""
+    entries = {}  # (kernel, model, tableau, L, dtype name) -> kernels-line entry
+    for model, tab, L in team_chains():
+        for kernel in ("nll_fwd", "nll_bwd"):
+            for dtype in (torch.float32, torch.float64):
+                e = team_entry(kernel, model, tab, L, dtype)
+                ptx_model, n = ("hodgkin_huxley", int(model[2:])) if model in TEAM_HH else (model, TILE_N[model])
+                spill = next((q for q in ptxas if (q["kernel"], q["model"], q["tableau"], q["n"], q["L"], q["dtype"])
+                              == (kernel, ptx_model, tab, n, L, e["dtype"])), {})
+                e.update(registers=spill.get("registers"), spill_stores=spill.get("spill_stores"), launches=0)
+                entries[(kernel, e["model"], tab, L, e["dtype"])] = e
+
+    team_parity_phase(plain_procs, entries)
+    paths = {**lv_kv3_phases(plain_procs), **hh_rkf45_phases(plain_procs)}
+    team_timing_phase(plain_procs, entries)
+    for _, by_chain in paths.values():
+        for key, count in by_chain.items():
+            kernel, model, tab, _, L, dt = key
+            if (kernel, model, tab, L, dt) in entries:
+                entries[(kernel, model, tab, L, dt)]["launches"] += count
+    (OUT / "team_instantiations.json").write_text(json.dumps(list(entries.values()), indent=1))
+    return {"entries": list(entries.values()), "paths": {name: counts for name, (counts, _) in paths.items()}}
+
+
+PLAIN_REF_GROUPS = PLAIN_REF_GROUPS + team_ref_groups()
+
+
 # ---- probabilistic ODE solutions: run_ode_solver, run_filter, run_calibration ----
 SOLUTION_SYSTEMS = ("lotkavolterra", "lorenz", "vanderpol", "lcao")
 # Lorenz is chaotic: float32 and float64, or two devices, part within its
@@ -1735,37 +2310,55 @@ def run_solution(key: str, device: str, float64: bool) -> tuple:
     return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)) for k, v in res.items()}, wall, steps
 
 
-def solution_references(out_dir: Path) -> None:
-    """The CPU float64 runs of CPU_JOBS, each saved as ``<key>.npz`` in
-    ``out_dir`` (with its wall seconds), then ``done``. Runs in a process
-    of its own beside the card phases."""
+def solution_references(out_dir: Path, keys: list) -> None:
+    """The CPU float64 references ``keys`` (of CPU_JOBS, and ``c2_route``),
+    each saved as ``<key>.npz`` in ``out_dir`` (with its wall seconds) once
+    complete. Runs in a process of its own beside the card phases."""
     torch.set_num_threads(REF_THREADS)
-    with np.load(GT_NPZ) as z:
-        np.savez(SOLUTION_DIR / "gt_ulp.npz", t=z["t"], x=ulp_moved(z["x"]))
-    for key in CPU_JOBS:
-        res, wall, steps = run_solution(key, "cpu", True)
-        np.savez(out_dir / f"{key}.npz", **res, _wall_s=wall, _steps=steps)
-    np.savez(out_dir / "c2_route.npz", **c2_values_and_grads("cpu", held_only=True))
-    (out_dir / "done").write_text("ok")
+    if "cal_ulp" in keys:
+        with np.load(GT_NPZ) as z:
+            np.savez(SOLUTION_DIR / "gt_ulp.npz", t=z["t"], x=ulp_moved(z["x"]))
+    for key in keys:
+        if key == "c2_route":
+            arrays = c2_values_and_grads("cpu", held_only=True)
+        else:
+            res, wall, steps = run_solution(key, "cpu", True)
+            arrays = {**res, "_wall_s": wall, "_steps": steps}
+        tmp = out_dir / f"{key}.npz.tmp"
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **arrays)
+        tmp.replace(out_dir / f"{key}.npz")
 
 
-def start_solution_references() -> subprocess.Popen:
+# the processes of the solution references: the solution jobs, and c2_route's lanes beside them (on a slow
+# host the phases waited for the two run one after the other)
+SOLUTION_REF_GROUPS = (CPU_JOBS, ("c2_route",))
+
+
+def start_solution_references() -> dict:
+    """Starts a process for each of SOLUTION_REF_GROUPS: {key: (process, log path)}."""
     SOLUTION_DIR.mkdir(exist_ok=True)
     for stale in SOLUTION_DIR.glob("*"):
         stale.unlink()
-    log = open(OUT / "solution_references.log", "w")
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--solution-references",
-                             str(SOLUTION_DIR)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+    procs = {}
+    for i, keys in enumerate(SOLUTION_REF_GROUPS):
+        log_path = OUT / f"solution_references_{i}.log"
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--solution-references",
+                                 str(SOLUTION_DIR), *keys], stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+                                cwd=ROOT)
+        procs.update(dict.fromkeys(keys, (proc, log_path)))
+    return procs
 
 
-def reference(proc: subprocess.Popen, key: str) -> dict:
-    """The CPU reference of ``key``, waiting for the reference process."""
-    while not (SOLUTION_DIR / "done").exists():
-        if proc.poll() is not None:
-            raise AssertionError("the CPU reference process failed: "
-                                 + (OUT / "solution_references.log").read_text()[-4000:])
+def reference(procs: dict, key: str) -> dict:
+    """The CPU reference of ``key``, waiting for the process that computes it."""
+    path = SOLUTION_DIR / f"{key}.npz"
+    proc, log_path = procs[key]
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            raise AssertionError(f"the CPU reference process of {key} failed: " + log_path.read_text()[-4000:])
         time.sleep(0.5)
-    with np.load(SOLUTION_DIR / f"{key}.npz") as z:
+    with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -1791,7 +2384,7 @@ def step_scaled_gap(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
     return np.abs(got - ref).max(axis=axes) / np.where(largest > 0, largest, np.inf)
 
 
-def solution_phases(refs: subprocess.Popen) -> None:
+def solution_phases(refs: dict) -> None:
     """The ode_solver, filter_ekf, filter_pf, filter_ext and calibration
     phases (see the module note)."""
     with Phase("ode_solver") as ph:
@@ -1979,7 +2572,7 @@ def c2_values_and_grads(device: str, held_only: bool = False) -> dict:
             "on_kernels": on_kernels}
 
 
-def c2_phases(refs: subprocess.Popen) -> None:
+def c2_phases(refs: dict) -> None:
     """The c2_route and c2_optimize phases (see the module note)."""
     with Phase("c2_route") as ph:
         nll_kernel.reset_launches()
@@ -2427,7 +3020,8 @@ def trmse_phase() -> None:
 # ---- restart sharding over devices (parallel/mesh.py) and the ported scripts ----
 MESH_SHARDS = 4
 MESH_DEVICE_GAMMAS = (1e-2, 0.0)  # mesh_device's stages (measure_scaling's first gamma, then 0)
-MESH_DEVICE_MAX_ITER = 25
+MESH_DEVICE_MAX_ITER = 15  # 25 before the team phases
+COMPARE_MAXITER = 15  # compare_optimizer's --maxiter (25 before the team phases)
 DIAG_EXPERIMENT = "params/hodgkinhuxley11_full"
 DIAG_RESULT = HH_DATA / "hodgkinhuxley11_full_result.npz"  # results/params/hodgkinhuxley11_full.h5 as npz
 DIAG_CUT_STEPS = 20  # diag_nan_lanes' float64 card-against-CPU horizon (the experiment's: 10^4)
@@ -2608,21 +3202,23 @@ def mesh_phases(dev_refs: subprocess.Popen) -> dict:
 
     with Phase("compare_optimizer") as ph:
         nll_kernel.reset_launches()
-        out = compare_optimizer.main(["--experiment", "params/lotkavolterra2", "--restarts", "8", "--maxiter", "25",
+        out = compare_optimizer.main(["--experiment", "params/lotkavolterra2", "--restarts", "8",
+                                      "--maxiter", str(COMPARE_MAXITER),
                                       "--set", f"y_path={LV2_OBS}"])
         counts["compare_optimizer"] = dict(nll_kernel.launches)
         rows = {r[0]: dict(zip(compare_optimizer.HEADER[1:], r[1:])) for r in out["rows"]}
         for name in ("host L-BFGS (ours)", "device L-BFGS (ours)"):
             if not np.isfinite(rows[name]["best_nll"]):
                 raise AssertionError(f"compare_optimizer: {name} best NLL {rows[name]['best_nll']}")
-        ph.info.update(device=out["device"], dtype="float64", restarts=8, maxiter=25, stages=len(out["gammas"]),
+        ph.info.update(device=out["device"], dtype="float64", restarts=8, maxiter=COMPARE_MAXITER,
+                       stages=len(out["gammas"]),
                        rows=rows, launches=counts["compare_optimizer"])
     return counts
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--solution-references"]:
-        solution_references(Path(sys.argv[2]))
+        solution_references(Path(sys.argv[2]), sys.argv[3:])
         return 0
     if sys.argv[1:2] == ["--plain-references"]:
         plain_references(Path(sys.argv[2]), sys.argv[3:])
@@ -2653,7 +3249,7 @@ def main() -> int:
     # the build; the CPU float64 references of the HH phases, of the
     # solution phases and of the device phases start after it
     plain_procs = start_plain_references(before_build=True)
-    refs = dev_refs = None
+    refs, dev_refs = {}, None
     try:
         with Phase("build") as ph:
             res = build_library()
@@ -2661,13 +3257,14 @@ def main() -> int:
             ptxas = ptxas_report(res.log)
             ph.info.update(nvcc_seconds=res.seconds, built=res.built, library=str(res.path.relative_to(ROOT)),
                            units=len(list((ROOT / "ode_uncertainty_tpu_torch" / "csrc").glob("*.cu"))),
+                           slowest_units_done_s=dict(sorted(res.unit_seconds.items(), key=lambda kv: -kv[1])[:8]),
                            ptxas=ptxas)
         refs = start_solution_references()
         plain_procs.update(start_plain_references(before_build=False))
         dev_refs = start_device_references()
         return run_phases(refs, plain_procs, dev_refs, t_start, ptxas)
     finally:
-        for proc in (refs, *plain_procs.values(), dev_refs):
+        for proc in ({p for p, _ in refs.values()} | {*plain_procs.values(), dev_refs}):
             if proc is None:
                 continue
             if proc.poll() is None:
@@ -2675,7 +3272,7 @@ def main() -> int:
             proc.wait()
 
 
-def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.Popen, t_start: float,
+def run_phases(refs: dict, plain_procs: dict, dev_refs: subprocess.Popen, t_start: float,
                ptxas: list) -> int:
 
     obs_path, out_path = LV2_OBS, OUT / "lv2_evaluate.npz"
@@ -2692,12 +3289,6 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
         bench = parity(name, make, plain_ref(plain_procs, "parity_bench"), **kw)
         bench.pop("_plain64")
         ph.info.update(lotkavolterra2=lv2, bench_lv=bench,
-                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
-
-    with Phase("grad_parity") as ph:
-        lv2_grad, bench_grad = (grad_parity(rigs[key][0], rigs[key][1], plain_ref(plain_procs, key))
-                                for key in ("grad_lv2", "grad_bench"))
-        ph.info.update(lotkavolterra2=lv2_grad, bench_lv=bench_grad,
                        plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
 
     with Phase("main_path") as ph:
@@ -2820,7 +3411,7 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
                     "source": "ode_uncertainty_tpu_torch/csrc/nll_bwd.cu",
                     "replaces": "ode_uncertainty_tpu/ops/pallas_ekf.py:851",
                     "launches": opt_counts["nll_bwd"],
-                    "max_abs_err": lv2_grad["kernel_f32_vs_plain_f64"]["max_abs_err"],
+                    "max_abs_err": None,  # grad_parity's, after throughput
                     "ms": float(np.median(ms)), "plain_ms": plain_ms, "plain_steps": PLAIN_TIMING_STEPS,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         # beside it: the same launch with d/d gamma^1/2 (one direction more),
@@ -2856,6 +3447,16 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
                        filter_steps_per_s=8192 * 2000 / (med / 1e3),
                        plain_ms_b1024=plain_ms, plain_steps=PLAIN_TIMING_STEPS, bound_ms=b_ms, bound_by=b_by,
                        ops=ops)
+
+    # after the LV phases: its float64 plain reference (~45 s of one core)
+    # runs beside the build, which leaves it little of the host
+    with Phase("grad_parity") as ph:
+        lv2_grad, bench_grad = (grad_parity(rigs[key][0], rigs[key][1], plain_ref(plain_procs, key))
+                                for key in ("grad_lv2", "grad_bench"))
+        ph.info.update(lotkavolterra2=lv2_grad, bench_lv=bench_grad,
+                       plain_references="host CPU, processes of their own (PLAIN_REF_GROUPS)")
+
+    bwd_line["max_abs_err"] = lv2_grad["kernel_f32_vs_plain_f64"]["max_abs_err"]
 
     # ---- Hodgkin-Huxley evaluate through the Kvaerno3 nll_fwd ----
     hh_out = OUT / "hh_evaluate.npz"
@@ -2975,27 +3576,7 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
     with Phase("hh_full_optimize") as ph:
         full_opt_cfg = hh_config(HH_FULL_EXPERIMENT, "hodgkinhuxley_full.npz", out_path=hh_full_opt_path)
         full_opt_cfg["lbfgs_maxiter"] = HH_FULL_LBFGS_MAXITER
-        # the normalized points each (chunk x stage) unit starts from, by stage
-        starts: dict = {}
-        stage_grid = rpe.run_stage_grid
-
-        def recording_grid(out, p0, gammas, stage_fn, *args, **kwargs):
-            def recorded(p_norm, gamma, unit_key=None):
-                starts.setdefault(float(gamma), []).append(p_norm.detach().clone())
-                return stage_fn(p_norm, gamma, unit_key=unit_key)
-            return stage_grid(out, p0, gammas, recorded, *args, **kwargs)
-
-        rpe.run_stage_grid = recording_grid
-        try:
-            nll_kernel.reset_launches()
-            t0 = time.perf_counter()
-            with LaunchTimer() as timer:
-                res = optimize(full_opt_cfg)
-            wall = time.perf_counter() - t0
-            full_opt_counts = dict(nll_kernel.launches)
-        finally:
-            rpe.run_stage_grid = stage_grid
-        kernel_s = timer.seconds()
+        res, starts, full_opt_counts, _, wall, kernel_s = optimize_recording_starts(full_opt_cfg)
         n_opt = sum(full_opt_cfg["params_optimized"].values())
         if res["nll_optims"].shape != (100, 4) or res["params_optims"].shape != (100, 4, n_opt) or n_opt != 7:
             raise AssertionError(f"HH full optimize gave {res['nll_optims'].shape}, {res['params_optims'].shape}")
@@ -3008,18 +3589,7 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
         # the wrapper optimize built (float32, the entry points' time rule) at
         # each stage's starting points and gamma^1/2, as the optimizer computes it
         kf = rpe.batched_nll(build_rig(full_opt_cfg, torch.float32, torch.device(DEVICE)), full_opt_cfg, grad=True)[0]
-        descent = []
-        for stage, gam in enumerate(res["gammas"].tolist()):
-            gs = float(torch.sqrt(torch.as_tensor(gam, dtype=torch.float32)))
-            p_start = torch.cat(starts[float(np.float32(gam))]).to(device=DEVICE, dtype=torch.float32)
-            start = kf.launch(kf.physical(p_start), gs).double().cpu().numpy()
-            best_start = float(np.min(np.where(np.isfinite(start), start, np.inf)))
-            col = final_all[:, stage]
-            best_final = float(np.min(np.where(np.isfinite(col), col, np.inf)))
-            descent.append({"stage": stage, "gamma": gam, "best_start_nll": best_start, "best_final_nll": best_final,
-                            "finite_start": int(np.isfinite(start).sum()), "finite_final": int(np.isfinite(col).sum())})
-            if not best_final <= best_start:
-                raise AssertionError(f"HH full optimize did not descend at stage {stage}: {descent[-1]}")
+        descent = stage_descent(kf, res, starts)
         best = int(np.argmin(np.where(finite, final_all[:, -1], np.inf)))
         truth = float(kf.launch(kf.physical(kf.spec.defaults_norm_opt()[None].float()), 0.0)[0])
         generating = kf.spec.defaults_flat[kf.spec.opt_indices].cpu().numpy()
@@ -3251,6 +3821,9 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
     # ---- the explicit-step kernels on every tile model and tableau, params/pendulum ----
     erk = erk_phases(plain_procs, ptxas)
 
+    # ---- the team chains: Kvaerno3 on the tile models, HH under the explicit tableaus ----
+    team = team_phases(plain_procs, ptxas)
+
     # ---- probabilistic ODE solutions (no NLL kernel on these paths) ----
     solution_phases(refs)
 
@@ -3266,20 +3839,33 @@ def run_phases(refs: subprocess.Popen, plain_procs: dict, dev_refs: subprocess.P
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(CARD, flush=True)
     lv_mesh = ("mesh_host", "mesh_device", "mesh_landscape", "measure_scaling", "compare_optimizer")
+    entry = lambda e: {k: e[k] for k in (*KERNEL_KEYS, "registers", "spill_stores")}
+    # rows 1 and 3 (explicit steps) gain the HH paths, rows 2 and 4 (Kvaerno3) the LV one
+    explicit_paths = {k: v for k, v in team["paths"].items() if k.startswith("hh_rkf45")}
+    kvaerno3_paths = {k: v for k, v in team["paths"].items() if k.startswith("lv_kv3")}
     for line, name in ((fwd_line, "nll_fwd"), (bwd_line, "nll_bwd")):
         by_path = {"optimize (host L-BFGS)": opt_counts[name], "device_optimize (device L-BFGS)": dev_counts[name],
                    **{phase: mesh_counts[phase][name] for phase in lv_mesh},
-                   **{phase: counts[name] for phase, counts in erk["paths"].items() if counts[name]}}
+                   **{phase: counts[name] for phase, counts in {**erk["paths"], **explicit_paths}.items()
+                      if counts[name]}}
         if name == "nll_fwd":
             by_path = {"main_path (evaluate)": eval_launches, **by_path}
-        # every other model and tableau: one entry an instantiation (erk_timing's B = 256 times)
+        # every other model and tableau: one entry an instantiation (erk_timing's and team_timing's times)
         line.update(launches=sum(by_path.values()), launches_by_path=by_path,
-                    instantiations=[{k: e[k] for k in KERNEL_KEYS} for e in erk["entries"]
-                                    if e["name"].startswith(name)])
+                    instantiations=[entry(e) for e in erk["entries"] + team["entries"]
+                                    if e["name"].startswith(name) and e["tableau"] != "kvaerno3"])
     hh_by_path = {"hh_main_path (n = 4)": hh_counts["nll_fwd"], "hh_optimize (n = 4)": hh_opt_counts["nll_fwd"],
                   "hh_full_optimize (n = 8)": full_opt_counts["nll_fwd"],
-                  "diag_nan_lanes (n = 8)": mesh_counts["diag_nan_lanes"]["nll_fwd"]}
+                  "diag_nan_lanes (n = 8)": mesh_counts["diag_nan_lanes"]["nll_fwd"],
+                  **{phase: counts["nll_fwd"] for phase, counts in kvaerno3_paths.items()}}
     hh_line.update(launches=sum(hh_by_path.values()), launches_by_path=hh_by_path)
+    hh_bwd_line["launches_by_path"].update({phase: counts["nll_bwd"] for phase, counts in kvaerno3_paths.items()
+                                            if counts["nll_bwd"]})
+    hh_bwd_line["launches"] = sum(hh_bwd_line["launches_by_path"].values())
+    # the Kvaerno3 step on the tile models: one entry an instantiation (team_timing's times)
+    for line, name in ((hh_line, "nll_fwd"), (hh_bwd_line, "nll_bwd")):
+        line["instantiations"] = [entry(e) for e in team["entries"]
+                                  if e["name"].startswith(name) and e["tableau"] == "kvaerno3"]
     emit({"kernels": [fwd_line, hh_line, bwd_line, hh_bwd_line]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,11 +3,11 @@
 // Replaces the TPU kernel `bwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (body `_bwd_body` :752-828, VMEM variant :851, HBM-snapshot variant :832,
 // launched by `_bwd_call` :892) for an explicit Runge-Kutta step (every
-// tableau; Lotka-Volterra here under RKF45, the units nll_bwd_erk_*.cu for
-// the tile models of pallas_ekf.py:79-107 under every tableau) and for the
-// Kvaerno3 step (`_make_sdirk_step_tiles`
-// :291-364 with the stage solve's custom_jvp :301-332; Hodgkin-Huxley
-// reduced-4, reduced-1 and full). Given the per-lane cotangent g of the NLL
+// tableau; Lotka-Volterra here under RKF45, the units nll_bwd_erk_*.cu and
+// nll_bwd_dopri65_hh*.cu for every model with a tile RHS,
+// pallas_ekf.py:79-164, under every tableau) and for the Kvaerno3 step
+// (`_make_sdirk_step_tiles` :291-364 with the stage solve's custom_jvp
+// :301-332; the units nll_bwd_kv3_*.cu and nll_bwd_hh*.cu). Given the per-lane cotangent g of the NLL
 // it computes, per lane and for each direction of the launch's list,
 //   dphys[k] = g * dNLL/dphys[k]   for a parameter row k in the list,
 //   dgamma   = g * dNLL/dgamma_sqrt (summed over lanes by the caller).
@@ -51,7 +51,10 @@
 // slow-path branch. Per implicit stage the rule adds one value Jacobian
 // column, one dual RHS and one team solve. Hodgkin-Huxley reduced-4 (n = 4,
 // a team of 4), reduced-1 (n = 7) and full (n = 8, a team of 8), one unit
-// per variant and type (nll_bwd_hh{4,7,8}_{f32,f64}.cu).
+// per variant and type (nll_bwd_hh{4,7,8}_{f32,f64}.cu); the tile models
+// under Kvaerno3 (teams of 1, 2 and 4; nll_bwd_kv3_*.cu) and
+// Hodgkin-Huxley under the explicit tableaus (nll_bwd_erk_hh*.cu,
+// nll_bwd_dopri65_hh*.cu) run the same team chain on duals (nll_fwd.cu).
 //
 // Tangent rules: a comparison or a select (the QR's max-abs scale and its
 // `scale > 0` guard, the sign, the zero-column guard `vnorm_sq > eps`) acts
@@ -72,67 +75,106 @@
 
 #include "nll_bwd.cuh"
 
-// One unit each (nll_bwd_hh*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4,
-// reduced-1 and full, in float and double.
-#define ODEUQ_DECLARE(NAME)                                                                    \
-  extern "C" int NAME(const void* phys, int k_params, int batch, const void* ys, const double* rig, \
-                      double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,   \
-                      void* dgamma, void* stream);
-ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f32)
-ODEUQ_DECLARE(odeuq_nll_bwd_hh4_f64)
-ODEUQ_DECLARE(odeuq_nll_bwd_hh7_f32)
-ODEUQ_DECLARE(odeuq_nll_bwd_hh7_f64)
-ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f32)
-ODEUQ_DECLARE(odeuq_nll_bwd_hh8_f64)
-#undef ODEUQ_DECLARE
-
-// One unit each (nll_bwd_erk_*.cu): a model with a hand-written RHS under
-// the explicit tableaus (Lotka-Volterra under all but RKF45, which is
-// instantiated here), in float and double.
-#define ODEUQ_DECLARE_ERK(NAME)                                                                         \
+// One unit each (nll_bwd_{erk,kv3}_*.cu, nll_bwd_dopri65_hh*.cu,
+// nll_bwd_hh*.cu): a model with a hand-written RHS under the explicit
+// tableaus (Lotka-Volterra under all but RKF45, which is instantiated here; a
+// thread per lane) and under Kvaerno3 (a team per lane), and each
+// single-compartment Hodgkin-Huxley variant under the explicit tableaus
+// (nll_bwd_erk_hh*.cu; Dormand-Prince in nll_bwd_dopri65_hh*.cu) and under
+// Kvaerno3 (nll_bwd_hh*.cu), a team per lane, in float and double.
+#define ODEUQ_DECLARE_UNIT(NAME) \
   extern "C" int NAME(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys, \
                       const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows,     \
                       void* dphys, void* dgamma, void* stream);
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lv_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lv_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lorenz_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_lorenz_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_vdp_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_vdp_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_pendulum_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_pendulum_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_logistic_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_logistic_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_exponential_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_bwd_erk_exponential_f64)
-#undef ODEUQ_DECLARE_ERK
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_lv_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_lv_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_lorenz_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_lorenz_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_vdp_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_vdp_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_pendulum_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_pendulum_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_logistic_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_logistic_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_exponential_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_exponential_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_lv_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_lv_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_lorenz_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_lorenz_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_vdp_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_vdp_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_pendulum_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_pendulum_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_logistic_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_logistic_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_exponential_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_kv3_exponential_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh4_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh4_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh7_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh7_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh8_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_erk_hh8_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh4_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh4_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh7_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh7_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh8_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_dopri65_hh8_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh4_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh4_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh7_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh7_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh8_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_bwd_hh8_f64)
+#undef ODEUQ_DECLARE_UNIT
 
 namespace {
 
-using ErkBwd = int (*)(int, int, const void*, int, int, const void*, const double*, double, const void*,
-                       const int*, int, void*, void*, void*);
+using UnitBwd = int (*)(int, int, const void*, int, int, const void*, const double*, double, const void*,
+                        const int*, int, void*, void*, void*);
 
-// model id, state size n, parameter count and the unit's entries (float, double)
-struct ErkBwdUnit {
-  int model, n, k;
-  ErkBwd f32, f64;
+// model id, state size n, parameter count and the unit's entries (float,
+// double)
+struct BwdUnit {
+  int model;
+  int n, k;
+  UnitBwd f32, f64;
 };
-constexpr ErkBwdUnit kErkBwdUnits[] = {
-    {0, LotkaVolterra::N, LotkaVolterra::K, odeuq_nll_bwd_erk_lv_f32, odeuq_nll_bwd_erk_lv_f64},
-    {4, Lorenz::N, Lorenz::K, odeuq_nll_bwd_erk_lorenz_f32, odeuq_nll_bwd_erk_lorenz_f64},
-    {5, VanDerPol::N, VanDerPol::K, odeuq_nll_bwd_erk_vdp_f32, odeuq_nll_bwd_erk_vdp_f64},
-    {6, Pendulum::N, Pendulum::K, odeuq_nll_bwd_erk_pendulum_f32, odeuq_nll_bwd_erk_pendulum_f64},
-    {7, Logistic::N, Logistic::K, odeuq_nll_bwd_erk_logistic_f32, odeuq_nll_bwd_erk_logistic_f64},
-    {8, Exponential::N, Exponential::K, odeuq_nll_bwd_erk_exponential_f32, odeuq_nll_bwd_erk_exponential_f64},
+#define ODEUQ_UNIT(ID, MODEL, NAME) {ID, MODEL::N, MODEL::K, NAME##_f32, NAME##_f64}
+constexpr BwdUnit kBwdUnits[] = {
+    ODEUQ_UNIT(0, LotkaVolterra, odeuq_nll_bwd_erk_lv),
+    ODEUQ_UNIT(4, Lorenz, odeuq_nll_bwd_erk_lorenz),
+    ODEUQ_UNIT(5, VanDerPol, odeuq_nll_bwd_erk_vdp),
+    ODEUQ_UNIT(6, Pendulum, odeuq_nll_bwd_erk_pendulum),
+    ODEUQ_UNIT(7, Logistic, odeuq_nll_bwd_erk_logistic),
+    ODEUQ_UNIT(8, Exponential, odeuq_nll_bwd_erk_exponential),
+    ODEUQ_UNIT(0, LotkaVolterra, odeuq_nll_bwd_kv3_lv),
+    ODEUQ_UNIT(4, Lorenz, odeuq_nll_bwd_kv3_lorenz),
+    ODEUQ_UNIT(5, VanDerPol, odeuq_nll_bwd_kv3_vdp),
+    ODEUQ_UNIT(6, Pendulum, odeuq_nll_bwd_kv3_pendulum),
+    ODEUQ_UNIT(7, Logistic, odeuq_nll_bwd_kv3_logistic),
+    ODEUQ_UNIT(8, Exponential, odeuq_nll_bwd_kv3_exponential),
+    ODEUQ_UNIT(1, HodgkinHuxley<4>, odeuq_nll_bwd_erk_hh4),
+    ODEUQ_UNIT(2, HodgkinHuxley<7>, odeuq_nll_bwd_erk_hh7),
+    ODEUQ_UNIT(3, HodgkinHuxley<8>, odeuq_nll_bwd_erk_hh8),
+    ODEUQ_UNIT(1, HodgkinHuxley<4>, odeuq_nll_bwd_dopri65_hh4),
+    ODEUQ_UNIT(2, HodgkinHuxley<7>, odeuq_nll_bwd_dopri65_hh7),
+    ODEUQ_UNIT(3, HodgkinHuxley<8>, odeuq_nll_bwd_dopri65_hh8),
+    ODEUQ_UNIT(1, HodgkinHuxley<4>, odeuq_nll_bwd_hh4),
+    ODEUQ_UNIT(2, HodgkinHuxley<7>, odeuq_nll_bwd_hh7),
+    ODEUQ_UNIT(3, HodgkinHuxley<8>, odeuq_nll_bwd_hh8),
 };
+#undef ODEUQ_UNIT
 
 }  // namespace
 
 // dtype: 0 float32, 1 float64. model and tableau ids as in nll_fwd.cu.
-// Instantiated: every explicit tableau on Lotka-Volterra, Lorenz, van der
-// Pol, the pendulum, logistic and exponential growth (L = 1, and L = n for
-// n > 1) and the three Hodgkin-Huxley variants x Kvaerno3 (n = 4, 7, 8;
-// L = 1).
+// Instantiated: every tableau (the explicit ones and Kvaerno3) on
+// Lotka-Volterra, Lorenz, van der Pol, the pendulum, logistic and
+// exponential growth at every L in 1..n, and on the three Hodgkin-Huxley
+// variants (n = 4, 7, 8) at L = 1.
 // phys: [k_params, batch]; ys: [n_obs, obs_dim]; g: [batch] NLL cotangent;
 // rows: the n_rows parameter rows to differentiate (host memory, distinct);
 // out dphys: [k_params, batch], written on those rows; out dgamma: [batch]
@@ -160,23 +202,12 @@ extern "C" int odeuq_nll_bwd(int dtype, int n, int obs_dim, int model, int table
                                                      rows, n_rows, dphys, dgamma, s);
     return -1;
   }
-  if (tableau != 1) {
-    for (const ErkBwdUnit& u : kErkBwdUnits)
-      if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1))
-        return (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g, rows,
-                                            n_rows, dphys, dgamma, stream);
-    return -1;
-  }
-  if (obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
-  const bool f32 = dtype == 0;
-  if (model == 1 && n == 4)
-    return (f32 ? odeuq_nll_bwd_hh4_f32 : odeuq_nll_bwd_hh4_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                                rows, n_rows, dphys, dgamma, stream);
-  if (model == 2 && n == 7)
-    return (f32 ? odeuq_nll_bwd_hh7_f32 : odeuq_nll_bwd_hh7_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                                rows, n_rows, dphys, dgamma, stream);
-  if (model == 3 && n == 8)
-    return (f32 ? odeuq_nll_bwd_hh8_f32 : odeuq_nll_bwd_hh8_f64)(phys, k_params, batch, ys, rig, gamma_sqrt, g,
-                                                                rows, n_rows, dphys, dgamma, stream);
+  // a unit without this tableau or size returns -1: the next unit of the model may have it
+  for (const BwdUnit& u : kBwdUnits)
+    if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1)) {
+      const int err = (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                   rows, n_rows, dphys, dgamma, stream);
+      if (err != -1) return err;
+    }
   return -1;
 }

@@ -1,10 +1,13 @@
 // The NLL-gradient kernel templates and their launchers, shared by
 // nll_bwd.cu (the dispatcher and the Lotka-Volterra x RKF45
 // instantiations, one thread per lane and direction), the nll_bwd_erk_*.cu
-// units (one model each under the explicit tableaus, one thread per lane
-// and direction) and the nll_bwd_hh*.cu units, one Kvaerno3 Hodgkin-Huxley
-// instantiation each on a team of threads per lane and direction (so that
-// nvcc builds them in parallel). See nll_bwd.cu for the design.
+// units (a tile model under the explicit tableaus, one thread per lane and
+// direction; Hodgkin-Huxley under them, nll_bwd_erk_hh*.cu and
+// nll_bwd_dopri65_hh*.cu, a team of threads per lane and direction), the
+// nll_bwd_kv3_*.cu units (a tile model under Kvaerno3, a team) and the
+// nll_bwd_hh*.cu units, one Kvaerno3 Hodgkin-Huxley instantiation each on a
+// team (one model, type and kernel a unit, so that nvcc builds them in
+// parallel). See nll_bwd.cu for the design.
 
 #pragma once
 
@@ -73,45 +76,13 @@ int launch(const void* phys, int k_params, int batch, const void* ys, const doub
   return static_cast<int>(cudaGetLastError());
 }
 
-// An explicit tableau of a unit (nll_bwd_erk_*.cu) at L = 1 or, for n > 1,
-// L = n; -1 for another observation size.
-template <typename S, class Model, class Tab>
-int launch_sizes(int obs_dim, const void* phys, int k_params, int batch, const void* ys, const double* rig,
-                 double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys, void* dgamma,
-                 cudaStream_t stream) {
-  if (obs_dim == 1)
-    return launch<S, 1, Model, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys, dgamma,
-                                    stream);
-  if constexpr (Model::N > 1) {
-    if (obs_dim == Model::N)
-      return launch<S, Model::N, Model, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
-                                             dgamma, stream);
-  }
-  return -1;
-}
-
-// The tableau with id `tableau` (TableauId) among a unit's Tabs; -1 if none.
-template <typename S, class Model, class... Tabs>
-int launch_erk(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys,
-               const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,
-               void* dgamma, cudaStream_t stream) {
-  int err = -1;
-  (void)((tableau == TableauId<Tabs>::value
-              ? (err = launch_sizes<S, Model, Tabs>(obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g, rows,
-                                                    n_rows, dphys, dgamma, stream),
-                 true)
-              : false) ||
-         ...);
-  return err;
-}
-
-// The Kvaerno3 chain with L = 1 on dual numbers, one team of team_size(n)
-// threads per (lane, direction), one warp a block (team_chain.cuh);
-// blockIdx.y indexes the direction list.
-template <typename S, class Model>
+// The chain of one (lane, direction) on dual numbers, on a team of
+// team_size(n) threads, one warp a block (team_chain.cuh); blockIdx.y
+// indexes the direction list.
+template <typename S, class Model, int L, class Tab>
 __global__ void __launch_bounds__(kWarp)
     nll_bwd_team_kernel(const S* __restrict__ phys, int k_params, int batch, const S* __restrict__ ys,
-                        const Rig<S, Model::N, 1> rig, const S gamma_sqrt, const S* __restrict__ g,
+                        const Rig<S, Model::N, L> rig, const S gamma_sqrt, const S* __restrict__ g,
                         const Directions dirs, S* __restrict__ dphys, S* __restrict__ dgamma) {
   constexpr int N = Model::N, TS = team_size(N);
   using TeamSlab = Slab<Dual<S>, N, TS>;
@@ -123,7 +94,7 @@ __global__ void __launch_bounds__(kWarp)
       Model::template load<S>(phys, batch, lane < batch ? lane : batch - 1, rig.poff);
   const typename Model::template Params<Dual<S>> pd = seed(p, rig.poff, dir);
   const Dual<S> gs(gamma_sqrt, S(dir == k_params));
-  const Dual<S> nll = team_chain_nll<TS, Dual<S>, N, Model>(rig, pd, gs, ys, c, TeamSlab(slab, team));
+  const Dual<S> nll = team_chain_nll<TS, Dual<S>, N, L, Model, Tab>(rig, pd, gs, ys, c, TeamSlab(slab, team));
   if (c != 0 || lane >= batch) return;
   const S out = g[lane] * nll.d;
   if (dir < k_params)
@@ -132,41 +103,68 @@ __global__ void __launch_bounds__(kWarp)
     dgamma[lane] = out;
 }
 
-template <typename S, class Model>
+template <typename S, class Model, int L, class Tab>
 int launch_team(const void* phys, int k_params, int batch, const void* ys, const double* rig_host,
                 double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys, void* dgamma,
                 cudaStream_t stream) {
   constexpr int N = Model::N, lanes_per_block = kWarp / team_size(N);
-  const Rig<S, N, 1> rig = unpack_rig<S, N, 1, Model>(rig_host);
+  const Rig<S, N, L> rig = unpack_rig<S, N, L, Model>(rig_host);
   if (rig.n_obs < 1 || rig.d < 1 || rig.first < 0 || rig.newton_iters < 0) return -3;
   Directions dirs;
   if (const int bad = make_directions(k_params, rows, n_rows, dgamma != nullptr, &dirs)) return bad;
   const dim3 grid((batch + lanes_per_block - 1) / lanes_per_block, dirs.count);
-  nll_bwd_team_kernel<S, Model><<<grid, kWarp, 0, stream>>>(
+  nll_bwd_team_kernel<S, Model, L, Tab><<<grid, kWarp, 0, stream>>>(
       static_cast<const S*>(phys), k_params, batch, static_cast<const S*>(ys), rig, S(gamma_sqrt),
       static_cast<const S*>(g), dirs, static_cast<S*>(dphys), static_cast<S*>(dgamma));
   return static_cast<int>(cudaGetLastError());
 }
 
+// Tab at an observation size L in 1..MaxL, on a thread (Team false) or a
+// team of threads (Team true) per (lane, direction); -1 for another size.
+template <typename S, class Model, class Tab, bool Team, int MaxL, int L = 1>
+int launch_sizes(int obs_dim, const void* phys, int k_params, int batch, const void* ys, const double* rig,
+                 double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys, void* dgamma,
+                 cudaStream_t stream) {
+  if (obs_dim == L) {
+    if constexpr (Team)
+      return launch_team<S, Model, L, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys,
+                                           dgamma, stream);
+    else
+      return launch<S, L, Model, Tab>(phys, k_params, batch, ys, rig, gamma_sqrt, g, rows, n_rows, dphys, dgamma,
+                                      stream);
+  }
+  if constexpr (L < MaxL)
+    return launch_sizes<S, Model, Tab, Team, MaxL, L + 1>(obs_dim, phys, k_params, batch, ys, rig, gamma_sqrt, g,
+                                                          rows, n_rows, dphys, dgamma, stream);
+  return -1;
+}
+
+// The tableau with id `tableau` (TableauId) among a unit's Tabs; -1 if none.
+template <typename S, class Model, bool Team, int MaxL, class... Tabs>
+int launch_tableau(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys,
+                   const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,
+                   void* dgamma, cudaStream_t stream) {
+  int err = -1;
+  (void)((tableau == TableauId<Tabs>::value
+              ? (err = launch_sizes<S, Model, Tabs, Team, MaxL>(obs_dim, phys, k_params, batch, ys, rig,
+                                                              gamma_sqrt, g, rows, n_rows, dphys, dgamma, stream),
+                 true)
+              : false) ||
+         ...);
+  return err;
+}
+
 }  // namespace
 
-// The C entry of one Kvaerno3 Hodgkin-Huxley instantiation (L = 1).
-#define ODEUQ_NLL_BWD_KVAERNO3(NAME, REAL, DIM)                                                   \
-  extern "C" int NAME(const void* phys, int k_params, int batch, const void* ys, const double* rig, \
-                      double gamma_sqrt, const void* g, const int* rows, int n_rows, void* dphys,   \
-                      void* dgamma, void* stream) {                                                 \
-    return launch_team<REAL, HodgkinHuxley<DIM>>(phys, k_params, batch, ys, rig, gamma_sqrt, g,  \
-                                                 rows, n_rows, dphys, dgamma,                     \
-                                                 static_cast<cudaStream_t>(stream));              \
-  }
-
-// The C entry of one explicit-step unit: MODEL under the tableaus that
-// follow, in REAL, at L = 1 and (n > 1) L = n.
-#define ODEUQ_NLL_BWD_ERK(NAME, REAL, MODEL, ...)                                                        \
+// The C entry of a unit of MODEL under the tableaus that follow, in REAL,
+// at L = 1..MAX_L, a team of threads per (lane, direction) when TEAM. A
+// tableau or size the unit lacks returns -1.
+#define ODEUQ_NLL_BWD_UNIT(NAME, REAL, MODEL, TEAM, MAX_L, ...)                                          \
   extern "C" int NAME(int tableau, int obs_dim, const void* phys, int k_params, int batch, const void* ys, \
                       const double* rig, double gamma_sqrt, const void* g, const int* rows, int n_rows,     \
                       void* dphys, void* dgamma, void* stream) {                                            \
-    return launch_erk<REAL, MODEL, __VA_ARGS__>(tableau, obs_dim, phys, k_params, batch, ys, rig,          \
-                                                gamma_sqrt, g, rows, n_rows, dphys, dgamma,                \
-                                                static_cast<cudaStream_t>(stream));                       \
+    return launch_tableau<REAL, MODEL, TEAM, MAX_L, __VA_ARGS__>(tableau, obs_dim, phys, k_params, batch,   \
+                                                                 ys, rig, gamma_sqrt, g, rows, n_rows,     \
+                                                                 dphys, dgamma,                            \
+                                                                 static_cast<cudaStream_t>(stream));       \
   }

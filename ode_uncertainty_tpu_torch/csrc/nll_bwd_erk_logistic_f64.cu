@@ -4,4 +4,4 @@
 
 #include "nll_bwd.cuh"
 
-ODEUQ_NLL_BWD_ERK(odeuq_nll_bwd_erk_logistic_f64, double, Logistic, HeunEuler, Bs32, Rkf45, Dopri65)
+ODEUQ_NLL_BWD_UNIT(odeuq_nll_bwd_erk_logistic_f64, double, Logistic, false, Logistic::N, HeunEuler, Bs32, Rkf45, Dopri65)

@@ -1,7 +1,7 @@
 // nll_bwd for Lotka-Volterra under Heun-Euler, Bogacki-Shampine 3(2) and
-// Dormand-Prince 6(5) (RKF45: nll_bwd.cu), at L = 1 and L = n, in float (one
+// Dormand-Prince 6(5) (RKF45: nll_bwd.cu), at every L in 1..n, in float (one
 // model, type and kernel a unit, so that nvcc builds them in parallel).
 
 #include "nll_bwd.cuh"
 
-ODEUQ_NLL_BWD_ERK(odeuq_nll_bwd_erk_lv_f32, float, LotkaVolterra, HeunEuler, Bs32, Dopri65)
+ODEUQ_NLL_BWD_UNIT(odeuq_nll_bwd_erk_lv_f32, float, LotkaVolterra, false, LotkaVolterra::N, HeunEuler, Bs32, Dopri65)

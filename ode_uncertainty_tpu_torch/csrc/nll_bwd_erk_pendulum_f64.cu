@@ -1,8 +1,8 @@
 // nll_bwd for the pendulum under every explicit tableau (Heun-Euler,
-// Bogacki-Shampine 3(2), RKF45, Dormand-Prince 6(5)), at L = 1 and L = n, in
+// Bogacki-Shampine 3(2), RKF45, Dormand-Prince 6(5)), at every L in 1..n, in
 // double (one model, type and kernel a unit, so that nvcc builds them in
 // parallel).
 
 #include "nll_bwd.cuh"
 
-ODEUQ_NLL_BWD_ERK(odeuq_nll_bwd_erk_pendulum_f64, double, Pendulum, HeunEuler, Bs32, Rkf45, Dopri65)
+ODEUQ_NLL_BWD_UNIT(odeuq_nll_bwd_erk_pendulum_f64, double, Pendulum, false, Pendulum::N, HeunEuler, Bs32, Rkf45, Dopri65)

@@ -1,6 +1,6 @@
-// nll_bwd for Hodgkin-Huxley reduced-1 with the Kvaerno3 step, in double
+// nll_bwd for Hodgkin-Huxley reduced-1 with the Kvaerno3 step, at L = 1, in double
 // (one instantiation a unit, so that nvcc builds them in parallel).
 
 #include "nll_bwd.cuh"
 
-ODEUQ_NLL_BWD_KVAERNO3(odeuq_nll_bwd_hh7_f64, double, 7)
+ODEUQ_NLL_BWD_UNIT(odeuq_nll_bwd_hh7_f64, double, HodgkinHuxley<7>, true, 1, Kvaerno3)

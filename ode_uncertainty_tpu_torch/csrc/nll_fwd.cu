@@ -3,10 +3,12 @@
 // Replaces the TPU kernel `fwd_kernel` of ode_uncertainty_tpu/ops/pallas_ekf.py
 // (:722-742, launched by `_fwd_call` :866-890) for an explicit Runge-Kutta
 // step (`_erk_step_tiles` :171, every tableau; Lotka-Volterra here under
-// RKF45, the units nll_fwd_erk_*.cu for the tile models of :79-107 under
-// every tableau) and for the Kvaerno3 step
-// (`_make_sdirk_step_tiles` :291-364; the single-compartment Hodgkin-Huxley
-// variants). Its plain PyTorch version, which the tests
+// RKF45, the units nll_fwd_erk_*.cu for every model with a tile RHS,
+// :79-164, under every tableau) and for the Kvaerno3 step
+// (`_make_sdirk_step_tiles` :291-364; the units nll_fwd_kv3_*.cu and
+// nll_fwd_hh*.cu), the reference's `supports` (:383-399) on the
+// single-compartment models: every tile model at every L in 1..n, the
+// Hodgkin-Huxley variants at L = 1. Its plain PyTorch version, which the tests
 // and the on-card comparison hold this kernel against, is `nll_plain` in
 // ode_uncertainty_tpu_torch/ops/nll_kernel.py. The per-lane math lives in
 // ekf_chain.cuh, which the gradient kernel (nll_bwd.cu) shares.
@@ -76,68 +78,108 @@
 // chain of RHS evaluations that every thread of the team runs, and are
 // now the larger part of a step. One warp a block, so the lanes of a
 // dispatch spread over the SMs, one warp each.
+//
+// The same team chain runs Kvaerno3 on the tile models (teams of 1, 2 and 4
+// for n = 1, 2, 3; a column of the Jacobian from the model's hand-written
+// JVP along e_c; with L > 1 observed rows every thread of the team runs the
+// per-thread correct on the gathered P) and Hodgkin-Huxley under the
+// explicit tableaus: one thread per lane would carry every stage's n
+// tangent columns (Dormand-Prince at n = 8: 8 x 8 stage values and
+// 8 x 8 x 8 tangents, ~1,150 words in float64) against 255 registers, so
+// thread c carries column c's tangent through the stages (one jet
+// evaluation of the RHS a stage gives the stage slope and that tangent) and
+// the team shares only the QRs.
 
 #include "nll_fwd.cuh"
 
-// One unit each (nll_fwd_hh*.cu): Kvaerno3 x Hodgkin-Huxley reduced-4 (4),
-// reduced-1 (7), full (8), in float and double.
-#define ODEUQ_DECLARE(NAME)                                                                 \
-  extern "C" int NAME(const void* phys, int batch, const void* ys, const double* rig, \
-                      double gamma_sqrt, void* out, void* stream);
-ODEUQ_DECLARE(odeuq_nll_fwd_hh4_f32)
-ODEUQ_DECLARE(odeuq_nll_fwd_hh4_f64)
-ODEUQ_DECLARE(odeuq_nll_fwd_hh7_f32)
-ODEUQ_DECLARE(odeuq_nll_fwd_hh7_f64)
-ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f32)
-ODEUQ_DECLARE(odeuq_nll_fwd_hh8_f64)
-#undef ODEUQ_DECLARE
-
-// One unit each (nll_fwd_erk_*.cu): a model with a hand-written RHS under
-// the explicit tableaus (Lotka-Volterra under all but RKF45, which is
-// instantiated here), in float and double.
-#define ODEUQ_DECLARE_ERK(NAME)                                                                     \
+// One unit each (nll_fwd_{erk,kv3}_*.cu, nll_fwd_hh*.cu): a model with a
+// hand-written RHS under the explicit tableaus (Lotka-Volterra under all but
+// RKF45, which is instantiated here; a thread per lane) and under Kvaerno3 (a
+// team per lane), and each single-compartment Hodgkin-Huxley variant under
+// the explicit tableaus (nll_fwd_erk_hh*.cu) and under Kvaerno3
+// (nll_fwd_hh*.cu), a team per lane, in float and double.
+#define ODEUQ_DECLARE_UNIT(NAME) \
   extern "C" int NAME(int tableau, int obs_dim, const void* phys, int batch, const void* ys,       \
                       const double* rig, double gamma_sqrt, void* out, void* stream);
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lv_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lv_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lorenz_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_lorenz_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_vdp_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_vdp_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_pendulum_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_pendulum_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_logistic_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_logistic_f64)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_exponential_f32)
-ODEUQ_DECLARE_ERK(odeuq_nll_fwd_erk_exponential_f64)
-#undef ODEUQ_DECLARE_ERK
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_lv_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_lv_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_lorenz_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_lorenz_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_vdp_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_vdp_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_pendulum_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_pendulum_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_logistic_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_logistic_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_exponential_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_exponential_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_lv_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_lv_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_lorenz_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_lorenz_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_vdp_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_vdp_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_pendulum_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_pendulum_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_logistic_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_logistic_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_exponential_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_kv3_exponential_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh4_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh4_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh7_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh7_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh8_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_erk_hh8_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh4_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh4_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh7_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh7_f64)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh8_f32)
+ODEUQ_DECLARE_UNIT(odeuq_nll_fwd_hh8_f64)
+#undef ODEUQ_DECLARE_UNIT
 
 namespace {
 
-using ErkFwd = int (*)(int, int, const void*, int, const void*, const double*, double, void*, void*);
+using UnitFwd = int (*)(int, int, const void*, int, const void*, const double*, double, void*, void*);
 
-// model id, state size n, parameter count and the unit's entries (float, double)
-struct ErkFwdUnit {
-  int model, n, k;
-  ErkFwd f32, f64;
+// model id, state size n, parameter count and the unit's entries (float,
+// double)
+struct FwdUnit {
+  int model;
+  int n, k;
+  UnitFwd f32, f64;
 };
-constexpr ErkFwdUnit kErkFwdUnits[] = {
-    {0, LotkaVolterra::N, LotkaVolterra::K, odeuq_nll_fwd_erk_lv_f32, odeuq_nll_fwd_erk_lv_f64},
-    {4, Lorenz::N, Lorenz::K, odeuq_nll_fwd_erk_lorenz_f32, odeuq_nll_fwd_erk_lorenz_f64},
-    {5, VanDerPol::N, VanDerPol::K, odeuq_nll_fwd_erk_vdp_f32, odeuq_nll_fwd_erk_vdp_f64},
-    {6, Pendulum::N, Pendulum::K, odeuq_nll_fwd_erk_pendulum_f32, odeuq_nll_fwd_erk_pendulum_f64},
-    {7, Logistic::N, Logistic::K, odeuq_nll_fwd_erk_logistic_f32, odeuq_nll_fwd_erk_logistic_f64},
-    {8, Exponential::N, Exponential::K, odeuq_nll_fwd_erk_exponential_f32, odeuq_nll_fwd_erk_exponential_f64},
+#define ODEUQ_UNIT(ID, MODEL, NAME) {ID, MODEL::N, MODEL::K, NAME##_f32, NAME##_f64}
+constexpr FwdUnit kFwdUnits[] = {
+    ODEUQ_UNIT(0, LotkaVolterra, odeuq_nll_fwd_erk_lv),
+    ODEUQ_UNIT(4, Lorenz, odeuq_nll_fwd_erk_lorenz),
+    ODEUQ_UNIT(5, VanDerPol, odeuq_nll_fwd_erk_vdp),
+    ODEUQ_UNIT(6, Pendulum, odeuq_nll_fwd_erk_pendulum),
+    ODEUQ_UNIT(7, Logistic, odeuq_nll_fwd_erk_logistic),
+    ODEUQ_UNIT(8, Exponential, odeuq_nll_fwd_erk_exponential),
+    ODEUQ_UNIT(0, LotkaVolterra, odeuq_nll_fwd_kv3_lv),
+    ODEUQ_UNIT(4, Lorenz, odeuq_nll_fwd_kv3_lorenz),
+    ODEUQ_UNIT(5, VanDerPol, odeuq_nll_fwd_kv3_vdp),
+    ODEUQ_UNIT(6, Pendulum, odeuq_nll_fwd_kv3_pendulum),
+    ODEUQ_UNIT(7, Logistic, odeuq_nll_fwd_kv3_logistic),
+    ODEUQ_UNIT(8, Exponential, odeuq_nll_fwd_kv3_exponential),
+    ODEUQ_UNIT(1, HodgkinHuxley<4>, odeuq_nll_fwd_erk_hh4),
+    ODEUQ_UNIT(2, HodgkinHuxley<7>, odeuq_nll_fwd_erk_hh7),
+    ODEUQ_UNIT(3, HodgkinHuxley<8>, odeuq_nll_fwd_erk_hh8),
+    ODEUQ_UNIT(1, HodgkinHuxley<4>, odeuq_nll_fwd_hh4),
+    ODEUQ_UNIT(2, HodgkinHuxley<7>, odeuq_nll_fwd_hh7),
+    ODEUQ_UNIT(3, HodgkinHuxley<8>, odeuq_nll_fwd_hh8),
 };
+#undef ODEUQ_UNIT
 
 }  // namespace
 
 // dtype: 0 float32, 1 float64. model: 0 Lotka-Volterra, 1 Hodgkin-Huxley
 // reduced-4, 2 reduced-1, 3 full, 4 Lorenz, 5 van der Pol, 6 pendulum, 7
 // logistic, 8 exponential. tableau: 0 RKF45, 1 Kvaerno3, 2 Heun-Euler, 3
-// Bogacki-Shampine 3(2), 4 Dormand-Prince 6(5). Instantiated: every explicit
-// tableau on models 0 and 4-8 (L = 1, and L = n for n > 1) and each
-// Hodgkin-Huxley variant x Kvaerno3 (L = 1).
+// Bogacki-Shampine 3(2), 4 Dormand-Prince 6(5). Instantiated: every tableau
+// on models 0 and 4-8 at every L in 1..n, and on models 1-3 at L = 1.
 // phys: [k_params, batch] physical parameters; ys: [n_obs, obs_dim]; out: [batch].
 // Returns 0, a cudaError_t code (> 0), or a negative code for a configuration
 // no instantiation covers.
@@ -157,20 +199,13 @@ extern "C" int odeuq_nll_fwd(int dtype, int n, int obs_dim, int model, int table
       return launch<double, 2, LotkaVolterra, Rkf45>(phys, batch, ys, rig, gamma_sqrt, out, s);
     return -1;
   }
-  if (tableau != 1) {
-    for (const ErkFwdUnit& u : kErkFwdUnits)
-      if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1))
-        return (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, batch, ys, rig, gamma_sqrt, out, stream);
-    return -1;
-  }
-  if (obs_dim != 1 || k_params < HodgkinHuxley<4>::K || (dtype != 0 && dtype != 1)) return -1;
-  const bool f32 = dtype == 0;
-  if (model == 1 && n == 4)
-    return (f32 ? odeuq_nll_fwd_hh4_f32 : odeuq_nll_fwd_hh4_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
-  if (model == 2 && n == 7)
-    return (f32 ? odeuq_nll_fwd_hh7_f32 : odeuq_nll_fwd_hh7_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
-  if (model == 3 && n == 8)
-    return (f32 ? odeuq_nll_fwd_hh8_f32 : odeuq_nll_fwd_hh8_f64)(phys, batch, ys, rig, gamma_sqrt, out, stream);
+  // a unit without this tableau or size returns -1: the next unit of the model may have it
+  for (const FwdUnit& u : kFwdUnits)
+    if (model == u.model && n == u.n && k_params >= u.k && (dtype == 0 || dtype == 1)) {
+      const int err =
+          (dtype == 0 ? u.f32 : u.f64)(tableau, obs_dim, phys, batch, ys, rig, gamma_sqrt, out, stream);
+      if (err != -1) return err;
+    }
   return -1;
 }
 

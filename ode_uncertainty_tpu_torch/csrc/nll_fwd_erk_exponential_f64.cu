@@ -4,4 +4,4 @@
 
 #include "nll_fwd.cuh"
 
-ODEUQ_NLL_FWD_ERK(odeuq_nll_fwd_erk_exponential_f64, double, Exponential, HeunEuler, Bs32, Rkf45, Dopri65)
+ODEUQ_NLL_FWD_UNIT(odeuq_nll_fwd_erk_exponential_f64, double, Exponential, false, Exponential::N, HeunEuler, Bs32, Rkf45, Dopri65)

@@ -1,6 +1,6 @@
-// nll_fwd for Hodgkin-Huxley reduced-1 with the Kvaerno3 step, in float
+// nll_fwd for Hodgkin-Huxley reduced-1 with the Kvaerno3 step, at L = 1, in float
 // (one instantiation a unit, so that nvcc builds them in parallel).
 
 #include "nll_fwd.cuh"
 
-ODEUQ_NLL_FWD_KVAERNO3(odeuq_nll_fwd_hh7_f32, float, 7)
+ODEUQ_NLL_FWD_UNIT(odeuq_nll_fwd_hh7_f32, float, HodgkinHuxley<7>, true, 1, Kvaerno3)

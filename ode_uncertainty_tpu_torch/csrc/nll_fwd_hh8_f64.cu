@@ -1,6 +1,6 @@
-// nll_fwd for Hodgkin-Huxley full with the Kvaerno3 step, in double
+// nll_fwd for Hodgkin-Huxley full with the Kvaerno3 step, at L = 1, in double
 // (one instantiation a unit, so that nvcc builds them in parallel).
 
 #include "nll_fwd.cuh"
 
-ODEUQ_NLL_FWD_KVAERNO3(odeuq_nll_fwd_hh8_f64, double, 8)
+ODEUQ_NLL_FWD_UNIT(odeuq_nll_fwd_hh8_f64, double, HodgkinHuxley<8>, true, 1, Kvaerno3)

@@ -1,0 +1,7 @@
+// nll_fwd for exponential growth with the Kvaerno3 step, at every L in 1..n, in
+// double, on a team of threads per lane (team_chain.cuh; one model, type
+// and kernel a unit, so that nvcc builds them in parallel).
+
+#include "nll_fwd.cuh"
+
+ODEUQ_NLL_FWD_UNIT(odeuq_nll_fwd_kv3_exponential_f64, double, Exponential, true, Exponential::N, Kvaerno3)

@@ -1,8 +1,10 @@
-// The Kvaerno3 square-root EKF chain of one lane, run by a team of threads
-// (nll_fwd.cuh and nll_bwd.cuh launch it for the Hodgkin-Huxley units).
+// The square-root EKF chain of one lane, run by a team of threads
+// (nll_fwd.cuh and nll_bwd.cuh launch it for the Kvaerno3 units of every
+// model and for Hodgkin-Huxley under the explicit tableaus).
 //
-// A team is n threads rounded up to a power of two (4 for reduced-4, 8 for
-// n = 7 and 8) inside one warp. Thread c owns column c of the covariance
+// A team is n threads rounded up to a power of two (1, 2 and 4 for the tile
+// models with n = 1, 2, 3; 4 for reduced-4, 8 for n = 7 and 8) inside one
+// warp. Thread c owns column c of the covariance
 // square root P and everything that follows that column through a step:
 // the column's tangent through every stage, row c of the QR stack
 // [P_pred^T; (g Q)^T] and, after the QR, column c of the new P. The
@@ -37,7 +39,12 @@
 //   * Correct (L = 1): column c's share of H P, the innovation's 1 x 1 R
 //     factor and the gain K = P P^T H^T / s^2 come from sums over the
 //     team; the Joseph-form QR reuses `team_qr`, with the K R row in
-//     thread 0's second row.
+//     thread 0's second row. With L > 1 observed rows (tile models, n <= 3)
+//     the team gathers P in its slab and every thread runs the per-thread
+//     correct of ekf_chain.cuh on the same operands (`team_correct_rows`).
+//   * An explicit step (Hodgkin-Huxley): every thread evaluates the stage
+//     slopes and, in the same jet evaluation, column c's stage tangent
+//     (`team_stages_erk`); only the QRs are shared.
 // Sums over the team are shuffle-xor butterflies: addition commutes, so
 // every thread ends with the same bits. A team with more threads than n
 // gives its extra threads zero columns, which add nothing.
@@ -157,26 +164,18 @@ __device__ __forceinline__ void team_solve(T (&a)[N], T (&b)[N]) {
   }
 }
 
-// f = rhs(t, y) and column c of J = df/dy: the RHS on a jet with one tangent
-// seeded with e_c (a thread past the last column gets a zero column).
+// f = rhs(t, y) and column c of J = df/dy: the JVP along e_c (rhs_jvp,
+// ekf_chain.cuh; a thread past the last column gets a zero column).
 template <class Model, typename P, typename T>
 __device__ __forceinline__ void column_jacobian(const typename Model::template Params<P>& p,
                                                 typename Scalar<T>::type t, const T (&y)[Model::N], int c,
                                                 T (&f)[Model::N], T (&col)[Model::N]) {
   using S = typename Scalar<T>::type;
   constexpr int N = Model::N;
-  Jet<T, 1> yj[N], fj[N];
+  T e[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    yj[i].v = y[i];
-    yj[i].d[0] = T(S(i == c ? 1 : 0));
-  }
-  Model::rhs(p, t, yj, fj);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    f[i] = fj[i].v;
-    col[i] = fj[i].d[0];
-  }
+  for (int i = 0; i < N; ++i) e[i] = T(S(i == c ? 1 : 0));
+  rhs_jvp<Model, P, T>(p, t, y, e, f, col);
 }
 
 // The per-team slab of shared memory: an n x TS matrix of working values
@@ -308,19 +307,20 @@ __device__ __forceinline__ void team_qr(int c, T (&a0)[N], T (&a1)[N]) {
   for (int k = 0; k < N; ++k) a0[k] = a0[k] * scale;
 }
 
-// One EKF predict with the Kvaerno3 step (pallas_ekf.py:291-364, 480-497)
-// for thread c of the team: x is the lane's state, pc column c of P, qc
-// column c of g Q. The base-point inverse minv0 = (I - h g J0)^-1 only
-// speeds up the Newton iterations and carries no tangent.
-template <int TS, typename T, int N, class Model>
-__device__ __forceinline__ void team_predict(const Rig<typename Scalar<T>::type, N, 1>& rig,
-                                             const typename Model::template Params<T>& p,
-                                             const typename Model::template Params<typename Scalar<T>::type>& pv,
-                                             const T (&qc)[N], typename Scalar<T>::type t, int c,
-                                             const Slab<T, N, TS>& slab, T (&x)[N], T (&pc)[N]) {
+// The stages of the Kvaerno3 step (pallas_ekf.py:291-364) for thread c of
+// the team: k[s] the lane's stage slopes, dk[s] column c's tangent of stage
+// s, from x, the lane's state, and pc, column c of P. The base-point
+// inverse minv0 = (I - h g J0)^-1 only speeds up the Newton iterations and
+// carries no tangent.
+template <int TS, typename T, int N, int L, class Model>
+__device__ __forceinline__ void team_stages_kvaerno3(const Rig<typename Scalar<T>::type, N, L>& rig,
+                                                     const typename Model::template Params<T>& p,
+                                                     const typename Model::template Params<typename Scalar<T>::type>& pv,
+                                                     typename Scalar<T>::type t, int c, const Slab<T, N, TS>& slab,
+                                                     const T (&x)[N], const T (&pc)[N], T (&k)[Kvaerno3::S][N],
+                                                     T (&dk)[Kvaerno3::S][N]) {
   using S = typename Scalar<T>::type;
   const S hg = S(rig.h * Kvaerno3::kGamma);
-  T k[Kvaerno3::S][N], dk[Kvaerno3::S][N];  // dk[s]: column c's tangent of stage s
   T jcol[N];
   column_jacobian<Model, T, T>(p, t, x, c, k[0], jcol);
   S mrow[N];  // row c of minv0
@@ -395,6 +395,55 @@ __device__ __forceinline__ void team_predict(const Rig<typename Scalar<T>::type,
     __syncwarp();
     slab_matvec<TS, T, N>(slab.jac, dknown, dk[s]);
   }
+}
+
+// The stages of an explicit step (pallas_ekf.py:171) for thread c of the
+// team: every thread evaluates the lane's stage slopes k[s] and column c's
+// tangent dk[s] in one rhs_jvp along that column's stage tangent, so the
+// team shares no matrix.
+template <typename T, int N, int L, class Model, class Tab>
+__device__ __forceinline__ void team_stages_erk(const Rig<typename Scalar<T>::type, N, L>& rig,
+                                                const typename Model::template Params<T>& p,
+                                                typename Scalar<T>::type t, const T (&x)[N], const T (&pc)[N],
+                                                T (&k)[Tab::S][N], T (&dk)[Tab::S][N]) {
+  using S = typename Scalar<T>::type;
+#pragma unroll
+  for (int s = 0; s < Tab::S; ++s) {
+    T y[N], dy[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      y[i] = x[i];
+      dy[i] = pc[i];
+    }
+#pragma unroll
+    for (int j = 0; j < s; ++j) {
+      if (Tab::a(s, j) != 0.0) {
+        const S ha = S(rig.h * Tab::a(s, j));
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          y[i] = y[i] + ha * k[j][i];
+          dy[i] = dy[i] + ha * dk[j][i];
+        }
+      }
+    }
+    rhs_jvp<Model, T, T>(p, t + S(Tab::c(s) * rig.h), y, dy, k[s], dk[s]);
+  }
+}
+
+// One EKF predict (pallas_ekf.py:480-497) with the step Tab for thread c of
+// the team: x is the lane's state, pc column c of P, qc column c of g Q.
+template <int TS, typename T, int N, int L, class Model, class Tab>
+__device__ __forceinline__ void team_predict(const Rig<typename Scalar<T>::type, N, L>& rig,
+                                             const typename Model::template Params<T>& p,
+                                             const typename Model::template Params<typename Scalar<T>::type>& pv,
+                                             const T (&qc)[N], typename Scalar<T>::type t, int c,
+                                             const Slab<T, N, TS>& slab, T (&x)[N], T (&pc)[N]) {
+  using S = typename Scalar<T>::type;
+  T k[Tab::S][N], dk[Tab::S][N];  // dk[s]: column c's tangent of stage s
+  if constexpr (Tab::kImplicit)
+    team_stages_kvaerno3<TS, T, N, L, Model>(rig, p, pv, t, c, slab, x, pc, k, dk);
+  else
+    team_stages_erk<T, N, L, Model, Tab>(rig, p, t, x, pc, k, dk);
   // rows c and n + c of the QR stack: column c of P_pred, column c of g Q
   T a0[N], a1[N];
 #pragma unroll
@@ -403,12 +452,14 @@ __device__ __forceinline__ void team_predict(const Rig<typename Scalar<T>::type,
     a1[i] = qc[i];
   }
 #pragma unroll
-  for (int s = 0; s < Kvaerno3::S; ++s) {
-    const S hb = S(rig.h * Kvaerno3::b(s));
+  for (int s = 0; s < Tab::S; ++s) {
+    if (Tab::b(s) != 0.0) {
+      const S hb = S(rig.h * Tab::b(s));
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      x[i] = x[i] + hb * k[s][i];
-      a0[i] = a0[i] + hb * dk[s][i];
+      for (int i = 0; i < N; ++i) {
+        x[i] = x[i] + hb * k[s][i];
+        a0[i] = a0[i] + hb * dk[s][i];
+      }
     }
   }
   team_qr<TS, T, N>(c, a0, a1);
@@ -485,10 +536,48 @@ __device__ __forceinline__ T team_correct(const Rig<typename Scalar<T>::type, N,
   return (S(0.5) * (z * z) + rig.nll_const) + log(fabs(s));
 }
 
+// Joseph-form correct with L observed rows (L > 1) for thread c: the team
+// gathers P in its slab, every thread runs the per-thread correct
+// (ekf_chain.cuh `correct`) on the same operands, so x and the NLL agree bit
+// for bit across the team, and keeps its own column of the new P.
+template <int TS, typename T, int N, int L>
+__device__ __forceinline__ T team_correct_rows(const Rig<typename Scalar<T>::type, N, L>& rig, int c,
+                                               const Slab<T, N, TS>& slab, T (&x)[N], T (&pc)[N],
+                                               const typename Scalar<T>::type* __restrict__ y) {
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < N; ++i) slab.jac[i * TS + c] = pc[i];
+  __syncwarp();
+  T P[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) P[i][j] = slab.jac[i * TS + j];
+  const T nll = correct<T, N, L>(rig, x, P, y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T v = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) v = c == j ? P[i][j] : v;
+    pc[i] = v;
+  }
+  return nll;
+}
+
+template <int TS, typename T, int N, int L>
+__device__ __forceinline__ T team_correct_any(const Rig<typename Scalar<T>::type, N, L>& rig, int c,
+                                              const Slab<T, N, TS>& slab, T (&x)[N], T (&pc)[N],
+                                              const typename Scalar<T>::type* __restrict__ y) {
+  if constexpr (L == 1)
+    return team_correct<TS, T, N>(rig, c, x, pc, y[0]);
+  else
+    return team_correct_rows<TS, T, N, L>(rig, c, slab, x, pc, y);
+}
+
 // The NLL of one lane, by its team (see chain_nll in ekf_chain.cuh for the
 // grid and the time rules); every thread of the team returns it.
-template <int TS, typename T, int N, class Model>
-__device__ __forceinline__ T team_chain_nll(const Rig<typename Scalar<T>::type, N, 1>& rig,
+template <int TS, typename T, int N, int L, class Model, class Tab>
+__device__ __forceinline__ T team_chain_nll(const Rig<typename Scalar<T>::type, N, L>& rig,
                                             const typename Model::template Params<T>& p, const T& gamma_sqrt,
                                             const typename Scalar<T>::type* __restrict__ ys, int c,
                                             const Slab<T, N, TS>& slab) {
@@ -510,18 +599,18 @@ __device__ __forceinline__ T team_chain_nll(const Rig<typename Scalar<T>::type, 
   S t_acc = t0;
   for (int i = 0; i <= rig.first; ++i) {
     const S t = rig.accumulate_time ? t_acc : t0 + S(static_cast<double>(i) * rig.h);
-    team_predict<TS, T, N, Model>(rig, p, pv, qc, t, c, slab, x, pc);
+    team_predict<TS, T, N, L, Model, Tab>(rig, p, pv, qc, t, c, slab, x, pc);
     t_acc = t_acc + h;
   }
-  T nll = team_correct<TS, T, N>(rig, c, x, pc, ys[0]);
+  T nll = team_correct_any<TS, T, N, L>(rig, c, slab, x, pc, ys);
   for (int j = 1; j < rig.n_obs; ++j) {
     const S tj = S(rig.t0 + static_cast<double>(rig.first + 1 + (j - 1) * rig.d) * rig.h);
     for (int i = 0; i < rig.d; ++i) {
       const S t = rig.accumulate_time ? t_acc : tj + S(static_cast<double>(i) * rig.h);
-      team_predict<TS, T, N, Model>(rig, p, pv, qc, t, c, slab, x, pc);
+      team_predict<TS, T, N, L, Model, Tab>(rig, p, pv, qc, t, c, slab, x, pc);
       t_acc = t_acc + h;
     }
-    nll = nll + team_correct<TS, T, N>(rig, c, x, pc, ys[j]);
+    nll = nll + team_correct_any<TS, T, N, L>(rig, c, slab, x, pc, ys + static_cast<size_t>(j) * L);
   }
   return nll;
 }

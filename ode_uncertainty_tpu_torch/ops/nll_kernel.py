@@ -4,9 +4,9 @@ kernels and their plain PyTorch versions.
 Port of ``ode_uncertainty_tpu/ops/pallas_ekf.py``. The TPU kernel
 ``fwd_kernel`` becomes ``csrc/nll_fwd.cu`` and ``bwd_kernel`` becomes
 ``csrc/nll_bwd.cu`` (one thread per lane, or per lane and parameter
-direction; the Kvaerno3 instantiations in ``csrc/nll_fwd_hh*.cu`` and
-``csrc/nll_bwd_hh*.cu`` run a team of threads per lane, ``csrc/team_chain.cuh``;
-built by ``utils/cuda_build.py``). The tile math they run
+direction, for the explicit steps on the tile models; the Kvaerno3
+instantiations and Hodgkin-Huxley's explicit ones run a team of threads per
+lane, ``csrc/team_chain.cuh``; built by ``utils/cuda_build.py``). The tile math they run
 (``_build_chain_math`` and ``make_nll_tiles``) becomes :class:`ChainMath` and
 :func:`nll_plain`, which evaluate the same arithmetic on lists of ``[B]``
 tensors; :func:`nll_grad_plain` differentiates it with autograd. The tests
@@ -27,13 +27,14 @@ Scope (:func:`supports`): the exact ``SqrtEKF`` type with
 ``disable_cov_update=True``, a uniform observation grid read in row order,
 and a (model, solver) pair and (state, observation) size the kernels are
 instantiated for (``_KERNELS``, ``_SIZES``): every explicit tableau
-(Heun-Euler, Bogacki-Shampine 3(2), RKF45, Dormand-Prince 6(5)) on
-Lotka-Volterra, Lorenz, van der Pol, the pendulum, logistic and
-exponential growth, at L = 1 and L = n; the three single-compartment
-Hodgkin-Huxley variants with Kvaerno3, n = 4, 7 or 8 and L = 1; each with
-both kernels; :meth:`NllGrad.launch` raises for the others. Each launch
-also counts in ``launches_by_chain`` under its instantiation. The gradient of the implicit step follows the
-stage solve's implicit-function rule, not the Newton loop
+(Heun-Euler, Bogacki-Shampine 3(2), RKF45, Dormand-Prince 6(5)) and
+Kvaerno3 on Lotka-Volterra, Lorenz, van der Pol, the pendulum, logistic
+and exponential growth, at every L in 1..n; the same five steps on the
+three single-compartment Hodgkin-Huxley variants, n = 4, 7 or 8, at
+L = 1; each with both kernels; :meth:`NllGrad.launch` raises for the
+others. Each launch also counts in ``launches_by_chain`` under its
+instantiation. The gradient of the implicit step follows the stage
+solve's implicit-function rule, not the Newton loop
 (``ChainMath._kvaerno3_step``).
 
 Time: by default step i of observation interval j starts at
@@ -244,22 +245,20 @@ _MODEL_PARAMS = {
 _SOLVER_IDS = {"rkf45": 0, "kvaerno3": 1, "heun_euler": 2, "bs32": 3, "dopri65": 4}
 _ERK_TABLEAUS = ("heun_euler", "bs32", "rkf45", "dopri65")
 _ERK_MODELS = ("lotka_volterra", "lorenz", "van_der_pol", "pendulum", "logistic", "exponential")
-# (model, solver) -> the kernels instantiated for it: "fwd" (nll_fwd) and
-# "bwd" (nll_bwd, the gradient). Every ERK tableau on the models with a
-# hand-written device RHS (csrc/ekf_chain.cuh; rkf45 on Lotka-Volterra in
-# nll_fwd.cu / nll_bwd.cu, the rest in nll_{fwd,bwd}_erk_*.cu), Kvaerno3 on
-# the single-compartment Hodgkin-Huxley variants (nll_{fwd,bwd}_hh*.cu).
-_KERNELS = {(m, tab): ("fwd", "bwd") for m in _ERK_MODELS for tab in _ERK_TABLEAUS}
-_KERNELS.update({
-    ("hodgkin_huxley_reduced-4", "kvaerno3"): ("fwd", "bwd"),
-    ("hodgkin_huxley_reduced-1", "kvaerno3"): ("fwd", "bwd"),
-    ("hodgkin_huxley_full", "kvaerno3"): ("fwd", "bwd"),
-})
-# model -> the (state size n, observation size L) instantiated: L = 1 (one
-# observed row) and L = n (the whole state), Hodgkin-Huxley at L = 1
+_HH_MODELS = ("hodgkin_huxley_reduced-4", "hodgkin_huxley_reduced-1", "hodgkin_huxley_full")
+# (model, solver) pairs instantiated, each with both kernels (nll_fwd and
+# nll_bwd): every ERK tableau and Kvaerno3 on the models with a hand-written
+# device RHS (csrc/ekf_chain.cuh; rkf45 on Lotka-Volterra in nll_fwd.cu /
+# nll_bwd.cu, the other tableaus in nll_{fwd,bwd}_erk_*.cu, Kvaerno3 in
+# nll_{fwd,bwd}_kv3_*.cu) and on the single-compartment Hodgkin-Huxley
+# variants (Kvaerno3 in nll_{fwd,bwd}_hh*.cu, the ERK tableaus in
+# nll_{fwd,bwd}_erk_hh*.cu).
+_KERNELS = {(m, tab) for m in _ERK_MODELS + _HH_MODELS for tab in _ERK_TABLEAUS + ("kvaerno3",)}
+# model -> the (state size n, observation size L) instantiated: every L in
+# 1..n on the tile models, L = 1 on Hodgkin-Huxley
 _SIZES = {
     "lotka_volterra": {(2, 1), (2, 2)},
-    "lorenz": {(3, 1), (3, 3)},
+    "lorenz": {(3, 1), (3, 2), (3, 3)},
     "van_der_pol": {(2, 1), (2, 2)},
     "pendulum": {(2, 1), (2, 2)},
     "logistic": {(1, 1)},
@@ -271,13 +270,19 @@ _SIZES = {
 _DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
 
-def no_grad_kernel(model_name: str, solver_name: str, n: int) -> str:
+def instantiated(model_name: str, solver_name: str, n: int, L: int) -> bool:
+    """Whether nll_fwd and nll_bwd have an instantiation for this chain."""
+    return (model_name, solver_name) in _KERNELS and (n, L) in _SIZES.get(model_name, ())
+
+
+def no_grad_kernel(model_name: str, solver_name: str, n: int, L: int) -> str:
     """Why ``nll_bwd`` has no instantiation for this chain."""
     return (
-        f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}): the gradient kernel is "
-        f"instantiated for every ERK tableau ({', '.join(_ERK_TABLEAUS)}) on {', '.join(_ERK_MODELS)} "
-        "and for Kvaerno3 on the single-compartment Hodgkin-Huxley variants (n = 4, 7, 8); the entry "
-        "points take make_nll + autograd (inference/nll.py) for every other configuration"
+        f"no nll_bwd instantiation for {model_name} with {solver_name} (n = {n}, L = {L}): the gradient kernel "
+        f"is instantiated for every ERK tableau ({', '.join(_ERK_TABLEAUS)}) and Kvaerno3 on "
+        f"{', '.join(_ERK_MODELS)} at every L in 1..n, and on the single-compartment Hodgkin-Huxley "
+        "variants (n = 4, 7, 8) at L = 1; the entry points take make_nll + autograd (inference/nll.py) for "
+        "every other configuration"
     )
 
 
@@ -297,14 +302,15 @@ def detect_uniform(obs):
 
 def supports(model, solver, ekf, obs, grad: bool = False) -> bool:
     """Whether the CUDA kernels cover this configuration: the forward NLL
-    (``nll_fwd``), and with ``grad`` its gradient (``nll_bwd``) as well."""
+    (``nll_fwd``), and with ``grad`` its gradient (``nll_bwd``) as well.
+    Both kernels are instantiated for the same chains, so ``grad`` does not
+    change the answer; callers state which they need."""
     return (
         isinstance(solver, (ERK, Kvaerno3))
-        and ("bwd" if grad else "fwd") in _KERNELS.get((model.name, solver.name), ())
+        and instantiated(model.name, solver.name, model.state_size, obs.obs_dim)
         # exact type: a subclass may compute a different likelihood
         and type(ekf) is SqrtEKF
         and getattr(ekf, "disable_cov_update", False)
-        and (model.state_size, obs.obs_dim) in _SIZES.get(model.name, ())
         and detect_uniform(obs) is not None
     )
 
@@ -852,8 +858,8 @@ class NllGrad:
         """Raises for a chain the gradient kernel has no instantiation for,
         on either device (the CPU route stands in for the kernel only)."""
         cm = self.cm
-        if "bwd" not in _KERNELS.get((cm.model_name, cm.solver.name), ()):
-            raise NotImplementedError(no_grad_kernel(cm.model_name, cm.solver.name, cm.n))
+        if not instantiated(cm.model_name, cm.solver.name, cm.n, cm.L):
+            raise NotImplementedError(no_grad_kernel(cm.model_name, cm.solver.name, cm.n, cm.L))
 
     def launch(self, phys_t: torch.Tensor, gamma_sqrt, g: torch.Tensor, with_dgamma: bool = True,
                rows: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

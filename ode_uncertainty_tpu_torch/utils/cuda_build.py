@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -41,6 +42,8 @@ class BuildResult:
     seconds: float  # nvcc wall time (compiles and link); 0 when the cached library was reused
     built: bool
     log: str  # nvcc's output (ptxas register and spill report)
+    # source name -> seconds from the build's start to the end of its nvcc (all start together)
+    unit_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def nvcc_path() -> str:
@@ -69,15 +72,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libodeuq_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run(cmds) -> str:
-    """Runs the commands side by side; returns their output or raises with
-    that of the first that failed."""
+def _run(cmds) -> tuple:
+    """Runs the commands side by side; returns their output and the seconds
+    from the start to each one's end, or raises with the output of the first
+    that failed."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs, seconds = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        seconds[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for cmd, proc, text in zip(cmds, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
-    return "".join(outs)
+    return "".join(outs), seconds
 
 
 def build_library() -> BuildResult:
@@ -91,14 +106,14 @@ def build_library() -> BuildResult:
     nvcc = nvcc_path()
     objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objs)])
+    log, unit_seconds = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objs)])
     tmp = out.with_name(f"{stem}.tmp.so")
-    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])[0]
     seconds = time.perf_counter() - t0
     os.replace(tmp, out)
     for o in objs:
         o.unlink()
-    return BuildResult(out, seconds, True, log)
+    return BuildResult(out, seconds, True, log, {src.name: t for src, t in zip(_sources(), unit_seconds)})
 
 
 @functools.cache

@@ -176,21 +176,25 @@ def _args():
 
 
 def kernel_label(mangled: str) -> str:
-    """A readable name for a mangled NLL kernel: kernel, model (and
-    tableau), n, L, type."""
+    """A readable name for a mangled NLL kernel: kernel, model and tableau,
+    n, L, type (the template arguments as chip_smoke.ptxas_report reads
+    them)."""
     import chip_smoke
 
-    m = re.search(r"(nll_(?:fwd|bwd))(\w*?_team)?_kernelI([fd])((?:Li\d+E)*)", mangled)
-    ints = re.findall(r"Li(\d+)E", m.group(4))
-    if "HodgkinHuxley" in mangled:
-        model, n, obs = "hh", re.search(r"HodgkinHuxleyILi(\d+)E", mangled).group(1), "1"
-    else:  # thread per lane: <T, N, L, Model, Tableau>
-        names = [mangled[k.end():k.end() + int(k.group(1))] for k in re.finditer(r"NS_(\d+)", mangled)]
-        model = "/".join(chip_smoke.PTXAS_MODELS.get(x, chip_smoke.PTXAS_TABLEAUS.get(x)) for x in names
-                         if x in chip_smoke.PTXAS_MODELS or x in chip_smoke.PTXAS_TABLEAUS)
-        n, obs = ints[0], ints[-1]
-    team = " team" if m.group(2) else ""
-    return f"{m.group(1)}{team} {model} n={n} L={obs} {'f32' if m.group(3) == 'f' else 'f64'}"
+    m = re.search(r"(nll_(?:fwd|bwd))(_team)?_kernelI([fd])(.*)", mangled)
+    kernel, team, real, rest = m.group(1, 2, 3, 4)
+    names = [rest[k.end():k.end() + int(k.group(1))] for k in re.finditer(r"NS_(\d+)", rest)]
+    model = next(chip_smoke.PTXAS_MODELS[x] for x in names if x in chip_smoke.PTXAS_MODELS)
+    # a checkout before the team kernels took a tableau ran Kvaerno3 on them
+    tableau = next((chip_smoke.PTXAS_TABLEAUS[x] for x in names if x in chip_smoke.PTXAS_TABLEAUS), "kvaerno3")
+    if team:  # <T, Model, L, Tab> (<T, HodgkinHuxley<n>> before), Model HodgkinHuxley<n> or a tile model
+        hh = re.search(r"HodgkinHuxleyILi(\d+)E", rest)
+        n = hh.group(1) if hh else chip_smoke.TILE_N[model]
+        obs = re.search(r"Li(\d+)E", rest[hh.end():] if hh else rest)
+        obs = obs.group(1) if obs else "1"
+    else:  # thread per lane: <T, N, L, Model, Tab>
+        n, obs = re.match(r"Li(\d+)ELi(\d+)E", rest).group(1, 2)
+    return f"{kernel}{' team' if team else ''} {model}/{tableau} n={n} L={obs} {'f32' if real == 'f' else 'f64'}"
 
 
 def sass_mix(lib_path: Path, cuobjdump: str) -> dict:

@@ -27,10 +27,18 @@ float64 plain version on the host's CPU: values float64 rtol 1e-9, float32
 |k - p| / (|p| + 1) <= 2e-4; gradients float64 rtol 1e-9, float32
 |k - p| / (|p| + 1) <= 5e-3. So do the explicit-step instantiations of the
 other tile models and tableaus (every tableau on Lotka-Volterra, Lorenz, van
-der Pol, the pendulum, logistic and exponential growth, L = 1 and L = n;
+der Pol, the pendulum, logistic and exponential growth, every L in 1..n;
 40-step rigs with a correct every second step), at gamma^1/2 = 0.1 and 0.
+The team instantiations added beside them (Kvaerno3 on every tile model at
+every L, on 20-step rigs; every explicit tableau on the single-compartment
+Hodgkin-Huxley variants, on 6-step rigs across the stimulus edge from
+t = 9.98) run batches of 1 and 33 lanes at gamma^1/2 = 0.1 and 0 against the
+float64 plain version on the host's CPU: float64 rtol 1e-9 (values and
+gradients); float32 |k - p| / (|p| + 1) <= 5e-4 / 1e-2 (Kvaerno3) and
+2e-4 / 5e-3 (explicit tableaus).
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -376,3 +384,54 @@ def test_erk_instantiations_match_plain_versions_on_ragged_batches(dtype, model,
             else:
                 assert (np.abs(got - want[:batch]) / (np.abs(want[:batch]) + 1.0)).max() <= 2e-4
                 assert lane <= 5e-3, (batch, lane)
+
+
+_TEAM_BATCHES = (1, 33)
+
+
+def _team_steps(model):
+    return 6 if model in chip_smoke.TEAM_HH else 20
+
+
+@functools.cache
+def _team_plain(model, tableau, L):
+    """The float64 plain values and gradients of a team chain's rig on the
+    host's CPU: the points, and per gamma^1/2 (0.1, 0) the values [33] and
+    the gradients [K + 1, 33]."""
+    fn64 = chip_smoke.team_kernel(model, tableau, L, torch.float64, _team_steps(model), "cpu")
+    p = np.random.default_rng(11).uniform(size=(max(_TEAM_BATCHES), fn64.spec.num_opt))
+    phys64 = fn64.physical(torch.as_tensor(p))
+    ones = torch.ones(len(p), dtype=torch.float64)
+    want = {}
+    for gamma_sqrt in (0.1, 0.0):
+        vals = nll_kernel.nll_plain(fn64.cm, phys64, fn64.ys, gamma_sqrt).numpy()
+        dphys, dgamma = nll_kernel.nll_grad_plain(fn64.cm, phys64, fn64.ys, torch.full_like(ones, gamma_sqrt), ones)
+        want[gamma_sqrt] = (vals, torch.cat([dphys, dgamma[None]]).numpy())
+    return p, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model,tableau,L", chip_smoke.team_chains())
+def test_team_instantiations_match_plain_versions(dtype, model, tableau, L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NLL kernels have no CPU mode (chip_smoke.py runs them)")
+    fn = chip_smoke.team_kernel(model, tableau, L, getattr(torch, dtype), _team_steps(model), "cuda")
+    p, want = _team_plain(model, tableau, L)
+    val_limit, grad_limit = (5e-4, 1e-2) if tableau == "kvaerno3" else (2e-4, 5e-3)
+    for gamma_sqrt, (vals, grads) in want.items():
+        for batch in _TEAM_BATCHES:
+            phys = fn.physical(torch.as_tensor(p[:batch], device="cuda"))
+            got = fn.launch(phys, gamma_sqrt)
+            dp, dg = fn.grad.launch(phys, gamma_sqrt, torch.ones(batch, dtype=fn.cm.dtype, device="cuda"))
+            torch.cuda.synchronize()
+            got = got.double().cpu().numpy()
+            got_grad = torch.cat([dp, dg[None]]).double().cpu().numpy()
+            assert got.shape == (batch,) and np.isfinite(got).all() and np.isfinite(got_grad).all()
+            rel, lane = _grad_err(got_grad, grads[:, :batch])
+            if dtype == "float64":
+                np.testing.assert_allclose(got, vals[:batch], rtol=1e-9, atol=0.0)
+                assert rel <= 1e-9, (batch, rel)
+            else:
+                assert (np.abs(got - vals[:batch]) / (np.abs(vals[:batch]) + 1.0)).max() <= val_limit
+                assert lane <= grad_limit, (batch, lane)

@@ -205,25 +205,45 @@ def test_plain_gradient_matches_jax_grad_of_make_nll(model, dtype):
 def test_supports_every_erk_tableau_on_the_tile_models(model):
     _, trig = _rig(model, "rkf45", 1, "float64")
     args = dict(model=trig.model, ekf=trig.ekf, obs=trig.obs)
-    for tab in TABLEAUS:
+    for tab in TABLEAUS + ("kvaerno3",):
         assert nll_kernel.supports(**args, solver=getattr(ts, tab)(0.01), grad=True)
-    assert not nll_kernel.supports(**args, solver=ts.kvaerno3(0.01))
     assert not nll_kernel.supports(trig.model, ts.rkf45(0.01), TEKF(disable_cov_update=False), trig.obs)
 
 
-def test_supports_rejects_lorenz_l2_and_hodgkin_huxley_under_erk():
+def _coverage_rigs():
+    """Lorenz at L = 3 and L = 2, and HH reduced-4 at L = 1 and L = 2, on the
+    Lorenz rig's grid."""
     _, trig = _rig("lorenz", "rkf45", 3, "float64")
     two = type(trig.obs)(trig.obs.H[:2], trig.obs.R_sqrt[:2, :2], trig.obs.ys[:, :2], trig.obs.flags,
                          trig.obs.index_map)
+    eye4 = torch.eye(4, dtype=torch.float64)
+    one = type(trig.obs)(eye4[:1], trig.obs.R_sqrt[:1, :1], trig.obs.ys[:, :1], trig.obs.flags, trig.obs.index_map)
+    hh_two = type(trig.obs)(eye4[:2], trig.obs.R_sqrt[:2, :2], trig.obs.ys[:, :2], trig.obs.flags,
+                            trig.obs.index_map)
+    return trig, two, tm.hodgkin_huxley("reduced-4"), one, hh_two
+
+
+def test_supports_lorenz_l2_and_hodgkin_huxley_under_erk():
+    """Lorenz at L = 2 under every tableau and single-compartment HH under
+    every explicit tableau (L = 1) are instantiated."""
+    trig, two, hh, one, _ = _coverage_rigs()
     assert nll_kernel.supports(trig.model, trig.solver, trig.ekf, trig.obs, grad=True)
-    assert not nll_kernel.supports(trig.model, trig.solver, trig.ekf, two)
-    hh = tm.hodgkin_huxley("reduced-4")
-    one = type(trig.obs)(torch.eye(4, dtype=torch.float64)[:1], trig.obs.R_sqrt[:1, :1], trig.obs.ys[:, :1],
-                         trig.obs.flags, trig.obs.index_map)
-    for tab in TABLEAUS:
-        assert not nll_kernel.supports(hh, getattr(ts, tab)(0.01), trig.ekf, one)
-    assert nll_kernel.supports(hh, ts.kvaerno3(0.01), trig.ekf, one, grad=True)
-    assert "dopri65" in nll_kernel.no_grad_kernel(hh.name, "rkf45", 4)
+    for tab in TABLEAUS + ("kvaerno3",):
+        assert nll_kernel.supports(trig.model, getattr(ts, tab)(0.01), trig.ekf, two, grad=True)
+        assert nll_kernel.supports(hh, getattr(ts, tab)(0.01), trig.ekf, one, grad=True)
+
+
+def test_supports_rejects_lorenz_l2_and_hodgkin_huxley_under_erk():
+    """What the kernels still reject around those chains: Lorenz at L = 2
+    with the covariance update on, HH with two observed rows under every
+    tableau, and multi-compartment HH."""
+    trig, two, hh, one, hh_two = _coverage_rigs()
+    for tab in TABLEAUS + ("kvaerno3",):
+        assert not nll_kernel.supports(trig.model, getattr(ts, tab)(0.01), TEKF(disable_cov_update=False), two)
+        assert not nll_kernel.supports(hh, getattr(ts, tab)(0.01), trig.ekf, hh_two)
+    mc = tm.multi_compartment_hodgkin_huxley("reduced-4", 2)
+    assert not nll_kernel.supports(mc, ts.rkf45(0.01), trig.ekf, one)
+    assert "L = 1" in nll_kernel.no_grad_kernel(hh.name, "rkf45", 4, 2)
 
 
 def test_wrapper_runs_the_plain_versions_on_cpu_for_a_new_instantiation():

@@ -14,6 +14,8 @@ tests/test_torch_hh_full.py, test_torch_hh_xla.py, test_torch_hh_make_nll.py
 and test_torch_hh_time_rules.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,28 +165,40 @@ def test_kernel_wrapper_runs_the_plain_version_on_cpu_and_has_no_gradient():
         want = nll_kernel.nll_grad_plain(fn_other.cm, fn_other.physical(p), fn_other.ys, 0.1, g)
         assert torch.equal(dphys, want[0]) and torch.equal(dgamma, want[1])
     assert nll_kernel.launches == before
-    # a chain without a gradient unit (HH with an explicit tableau, built
-    # around the wrapper by hand): the wrapper raises on either device, and
-    # autograd through the forward may not stand in for it
+    # HH with an explicit tableau has its gradient unit too
     cm = nll_kernel.build_chain_math(trig.model, ts.dopri65(0.01), trig.spec, trig.obs, trig.state0, trig.q_sqrt)
     fn_erk = nll_kernel.NllFwd(cm, trig.spec, trig.obs.ys)
+    dphys, dgamma = fn_erk.grad(fn_erk.physical(p), 0.1, g)
+    want = nll_kernel.nll_grad_plain(cm, fn_erk.physical(p), fn_erk.ys, 0.1, g)
+    assert torch.equal(dphys, want[0]) and torch.equal(dgamma, want[1])
+    # a chain without a gradient unit (HH with two observed rows, built
+    # around the wrapper by hand): the wrapper raises on either device, and
+    # autograd through the forward may not stand in for it
+    cm2 = dataclasses.replace(cm, L=2, H=[[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0]], R=[[0.1, 0.0], [0.0, 0.1]])
+    fn_l2 = nll_kernel.NllFwd(cm2, trig.spec, torch.cat([trig.obs.ys, trig.obs.ys], 1))
     with pytest.raises(NotImplementedError, match="no nll_bwd instantiation"):
-        fn_erk.grad(fn_erk.physical(p), 0.1, g)
+        fn_l2.grad(fn_l2.physical(p), 0.1, g)
     with pytest.raises(NotImplementedError, match="no nll_bwd instantiation"):
-        fn_erk(p.clone().requires_grad_(True), 0.1).sum().backward()
+        fn_l2(p.clone().requires_grad_(True), 0.1).sum().backward()
 
 
 def test_supports_rules_for_the_implicit_step():
     _, trig = hh_rigs("reduced-4", "float64", 9.98, 4)
     args = dict(model=trig.model, solver=trig.solver, ekf=trig.ekf, obs=trig.obs)
     assert nll_kernel.supports(**args)
-    # HH with an explicit tableau, and the implicit step on Lotka-Volterra,
-    # have no instantiation
-    assert not nll_kernel.supports(**{**args, "solver": ts.rkf45(0.01)})
+    # HH under every explicit tableau is instantiated at L = 1
+    for tab in ("heun_euler", "bs32", "rkf45", "dopri65"):
+        assert nll_kernel.supports(**{**args, "solver": getattr(ts, tab)(0.01)}, grad=True)
     assert not nll_kernel.supports(**{**args, "ekf": TEKF(disable_cov_update=False)})
     from ode_uncertainty_tpu_torch import models as tm
 
     mc = tm.multi_compartment_hodgkin_huxley("reduced-4", 2)
     assert not nll_kernel.supports(**{**args, "model": mc})
-    lv = tm.lotka_volterra()
-    assert not nll_kernel.supports(**{**args, "model": lv})
+    # the implicit step on the tile models, at every L in 1..n
+    for name, n in (("lotka_volterra", 2), ("lorenz", 3), ("exponential", 1)):
+        assert all(nll_kernel.instantiated(name, "kvaerno3", n, L) for L in range(1, n + 1))
+        assert not nll_kernel.instantiated(name, "kvaerno3", n, n + 1)
+    # HH at L = 2 is not instantiated
+    two = type(trig.obs)(torch.eye(4, dtype=torch.float64)[:2], 0.1 * torch.eye(2, dtype=torch.float64),
+                         torch.cat([trig.obs.ys, trig.obs.ys], 1), trig.obs.flags, trig.obs.index_map)
+    assert not nll_kernel.supports(**{**args, "obs": two})

@@ -201,9 +201,9 @@ def test_supports_rules():
 
     assert not nll_kernel.supports(**{**args, "ekf": OtherFilter(disable_cov_update=True)})
     assert not nll_kernel.supports(**{**args, "ekf": TEKF(disable_cov_update=False)})
-    # every ERK tableau is instantiated on Lotka-Volterra; the implicit step is not
+    # every ERK tableau and the implicit step are instantiated on Lotka-Volterra
     assert nll_kernel.supports(**{**args, "solver": ts.dopri65(0.01)}, grad=True)
-    assert not nll_kernel.supports(**{**args, "solver": ts.kvaerno3(0.01)})
+    assert nll_kernel.supports(**{**args, "solver": ts.kvaerno3(0.01)}, grad=True)
     flags = trig.obs.flags.clone()
     flags[flags.nonzero()[0, 0]] = False  # irregular grid
     irregular = type(trig.obs)(trig.obs.H, trig.obs.R_sqrt, trig.obs.ys, flags, trig.obs.index_map)
